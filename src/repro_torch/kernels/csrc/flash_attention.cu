@@ -1,21 +1,30 @@
-// Flash attention for Hopper (sm_90a): online-softmax forward and the two
-// backward kernels that recompute the probabilities, built as a plain-C
-// shared library and bound with ctypes (repro_torch/kernels/flash_attention.py).
+// Flash attention for Hopper (sm_90a), SIMT route: online-softmax forward
+// and the two backward kernels that recompute the probabilities, built with
+// flash_attention_sm90.cu into one plain-C shared library and bound with
+// ctypes (repro_torch/kernels/flash_attention.py).
 //
 // Replaces the Pallas TPU kernels of repro/kernels/flash_attention.py:
 //   flash_fwd      <- _fwd_kernel      (flash_attention_fwd, pallas_call at :154)
 //   flash_bwd_dq   <- _bwd_dq_kernel   (flash_attention_bwd, pallas_call at :311)
 //   flash_bwd_dkv  <- _bwd_dkv_kernel  (flash_attention_bwd, pallas_call at :326)
 //
-// What bounds them on an H100: at the training shape (B 2, H 32, S 1024,
-// D 80, bf16, causal) each kernel does 2-4 causal S x S x D products
-// (10.7-21.5 GFLOP) against 42-63 MB of traffic, so the tensor-core rate
-// bounds them (989 TFLOP/s bf16: 11-22 us).  This first version is the
-// simple, correct design and does not reach that bound: its products run on
-// the CUDA cores in f32 (no wgmma, no TMA, no pipelining).  What the design
-// does keep from the TPU kernels is the memory trade: the S x S score matrix
-// never reaches device memory; the forward keeps only the per-row
-// logsumexp and the backward recomputes the probabilities tile by tile.
+// Routes, by dtype and D (an explicit switch in the C entry points below,
+// not a fallback): bf16 forward and dk/dv with D a multiple of 16 go to the
+// tensor-core kernels of flash_attention_sm90.cu (wgmma, TMA, mbarrier
+// ring), whose operands are whole swizzle atoms of 16, 32 or 64 columns;
+// f32 inputs, bf16 with any other D, and dq for both dtypes run the SIMT
+// kernels of this file.
+//
+// What bounds them on an H100, at the training shape (B 2, H 32, S 1024,
+// D 80, bf16, causal), from chip_smoke.attention_bounds: the forward moves
+// 42 MB (12.6 us at 3.35 TB/s) for 10.7 GFLOP (10.9 us at 989 TFLOP/s), so
+// bytes bound it; dq (16.3 us) and dk/dv (21.7 us) are bound by the
+// tensor-core rate.  These SIMT kernels do not approach either bound: their
+// products run on the CUDA cores in f32 (no wgmma, no TMA, no pipelining).
+// What the design does keep from the TPU kernels is the memory trade: the
+// S x S score matrix never reaches device memory; the forward keeps only
+// the per-row logsumexp and the backward recomputes the probabilities tile
+// by tile.
 //
 // Design (not a block-by-block copy of the Pallas grid, whose kv axis is a
 // sequential grid dimension carrying VMEM scratch):
@@ -32,8 +41,10 @@
 //     output columns tx + 16 j (j < 8, so D <= 128).  Row reductions are
 //     shuffles inside the 16 lanes that share ty.  Shared-memory rows have
 //     an odd pitch (D + 1) so the strided column reads hit distinct banks;
-//   * inputs are f32 or bf16, any element strides for the batch, head and
-//     sequence dims (the last dim must be contiguous), all arithmetic f32;
+//   * inputs are f32 or bf16 (bf16 forward and dk/dv only when D is not a
+//     multiple of 16), any element strides for the batch,
+//     head and sequence dims (the last dim must be contiguous), all
+//     arithmetic f32;
 //   * ragged sequence lengths are bounds-checked, never padded;
 //   * causal masking uses the decode-style offset off = Sk - Sq (query i
 //     sees keys j <= i + off), and kv tiles strictly above the band are
@@ -538,10 +549,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16.  Each
-// tensor's strides are given as (batch, head, seq) element strides of its
-// (B, heads, S, D) view; lse and delta are contiguous (B, H, Sq) float32.
-// Returns the cudaError_t of the launch (0 on success).
+// The bf16 tensor-core kernels (flash_attention_sm90.cu).
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const long long* strides, int B, int H, int KV, int Sq, int Sk, int D,
+                   int causal, float scale, cudaStream_t stream);
+int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dk, void* dv,
+                       const long long* strides, int B, int H, int KV, int Sq, int Sk, int D,
+                       int causal, float scale, cudaStream_t stream);
+
+// Plain C interface for ctypes.  dtype: 0 = float32 (SIMT kernels),
+// 1 = bfloat16 (forward and dk/dv: the tensor-core kernels when D is a
+// multiple of SM90_D_STEP, else SIMT; dq: SIMT).
+// Each tensor's strides are given as (batch, head, seq) element strides of
+// its (B, heads, S, D) view; lse and delta are contiguous (B, H, Sq)
+// float32.  Returns the cudaError_t of the launch (0 on success), or for
+// the bf16 route an error of its tensor maps (flash_attention_sm90.cu).
+constexpr int SM90_D_STEP = 16;  // the narrowest swizzle atom, in bf16 columns
+
 extern "C" {
 
 int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
@@ -552,6 +577,8 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, f
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fwd<float>(q, k, v, o, lse, qs, ks, vs, os, B, H, KV, Sq, Sk, D, causal, scale, st);
+  if (dtype == 1 && D % SM90_D_STEP == 0)
+    return flash_fwd_sm90(q, k, v, o, lse, strides, B, H, KV, Sq, Sk, D, causal, scale, st);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, qs, ks, vs, os, B, H, KV, Sq, Sk, D, causal,
                                      scale, st);
@@ -586,6 +613,9 @@ int flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v, const 
   if (dtype == 0)
     return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, dos, dks, dvs, B, H,
                              KV, Sq, Sk, D, causal, scale, st);
+  if (dtype == 1 && D % SM90_D_STEP == 0)
+    return flash_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, strides, B, H, KV, Sq, Sk, D,
+                              causal, scale, st);
   if (dtype == 1)
     return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, dos, dks, dvs,
                                      B, H, KV, Sq, Sk, D, causal, scale, st);

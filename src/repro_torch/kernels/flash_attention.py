@@ -1,16 +1,22 @@
 """Flash attention on Hopper: build, bind and launch the CUDA kernels.
 
 Replaces ``repro/kernels/flash_attention.py`` (three Pallas TPU kernels).
-The kernels live in ``csrc/flash_attention.cu``; its header says what each
-one replaces and what bounds it on an H100.  They are compiled at first use
-with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a plain-C shared
-library under ``build/repro_torch_kernels/<hash of sources and flags>/``
-at the repository root, and loaded with ``ctypes``.
+The kernels live in ``csrc/``: bf16 forward and dk/dv on the tensor cores
+in ``flash_attention_sm90.cu`` (D a multiple of 16), the f32 kernels, dq
+(both dtypes) and bf16 at any other D on the CUDA cores in
+``flash_attention.cu``, whose C entry points pick the route by dtype and
+D, as ``tensor_core_route`` does here.  Each file's header says what its kernels replace and what bounds
+them on an H100.  They are compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` (one nvcc per source, run
+together, then one link) into a plain-C shared library under
+``build/repro_torch_kernels/<hash of sources and flags>/`` at the
+repository root, and loaded with ``ctypes``.
 
 Each wrapper takes the kernel layout (q (B, H, Sq, D); k, v (B, KV, Sk, D),
-any strides with the last dim contiguous).  A tensor on the CPU goes to the
-plain version in ``kernels/ref.py``; a CUDA tensor goes to the kernel, or
-the wrapper raises.  ``LAUNCHES`` counts the launches of each kernel.
+any strides with the last dim contiguous; the tensor-core route loads
+through TMA and also needs 16-byte aligned bases and strides).  A tensor on the CPU goes to the plain version in
+``kernels/ref.py``; a CUDA tensor goes to the kernel, or the wrapper
+raises.  ``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -31,11 +37,16 @@ from . import ref
 NEG_INF = ref.NEG_INF
 MAX_HEAD_DIM = 128
 
-SOURCES = (Path(__file__).parent / "csrc" / "flash_attention.cu",)
+SM90_D_STEP = 16  # the tensor-core kernels take bf16 at D a multiple of this
+# their kernel functions, indexed as ``flash_sm90_launch_regs`` takes them
+SM90_KERNELS = ("fwd_kernel_sm90", "dkv_kernel_sm90")
+
+SOURCES = tuple(Path(__file__).parent / "csrc" / name
+                for name in ("flash_attention.cu", "flash_attention_sm90.cu"))
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -74,21 +85,70 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels if this version of the sources is not built yet.
 
-    The compiler's output (``-Xptxas=-v``: registers and shared memory per
-    kernel) is kept beside the library as ``nvcc.log``.
+    One nvcc per source, all started together, then one link.  The
+    compilers' output (``-Xptxas=-v``: registers, shared memory and spills
+    per kernel) is kept beside the library as ``nvcc.log``.  A library whose
+    tensor-core kernels are not built at the registers their setmaxnreg
+    split assumes is not installed: ``check_register_split`` raises.
     """
     lib = library_path()
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"tmp{os.getpid()}"
+    objs = [lib.parent / f"{src.stem}.{tag}.o" for src in SOURCES]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = lib.with_suffix(f".{tag}.so")
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        procs.append(link)
+    (lib.parent / "nvcc.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [p for p in procs if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0].returncode}):\n" + "".join(logs)[-8000:])
+    launch = ctypes.CDLL(str(tmp)).flash_sm90_launch_regs
+    try:
+        check_register_split(ptxas_registers("".join(logs)),
+                             {name: launch(i) for i, name in enumerate(SM90_KERNELS)})
+    except RuntimeError:
+        tmp.unlink()
+        raise
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_registers(log: str) -> Dict[str, int]:
+    """Kernel function (mangled) -> registers a thread, from ptxas's
+    ``-v`` report."""
+    regs, fn = {}, ""
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            fn = line.split("'")[1]
+        elif "Used " in line and " registers" in line:
+            regs[fn] = int(line.split("Used ")[1].split()[0])
+    return regs
+
+
+def check_register_split(regs: Dict[str, int], launch: Dict[str, int]) -> None:
+    """Each tensor-core kernel's producer warpgroup gives its registers to
+    the consumers with setmaxnreg, which hands out exactly the registers a
+    thread the kernel is launched with (``launch``, from its launch bounds).
+    Built with fewer, the consumers' ``setmaxnreg.inc`` would wait forever;
+    so every instantiation must be built at that count, or this raises."""
+    for name, want in launch.items():
+        found = {fn: n for fn, n in regs.items() if name in fn}
+        wrong = {fn: n for fn, n in found.items() if n != want}
+        if not found or wrong:
+            raise RuntimeError(f"{name}: ptxas built {wrong or 'no instantiation'} registers a "
+                               f"thread; its setmaxnreg split needs {want}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,8 +208,31 @@ def _check_stats(t: torch.Tensor, B: int, H: int, Sq: int, dev: torch.device) ->
                          "the inputs' device")
 
 
+def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
+    """Whether the forward and dk/dv run the tensor-core kernels (bf16, D a
+    multiple of ``SM90_D_STEP``) or the SIMT ones; the C entry points
+    switch on the same rule."""
+    return dtype == torch.bfloat16 and D % SM90_D_STEP == 0
+
+
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """The tensor-core route loads these through TMA tensor maps: each base
+    address and each stride of a dim longer than 1 must be a multiple of 16
+    bytes.  Raises; never copies."""
+    for name, t in tensors.items():
+        item = t.element_size()
+        bad = t.data_ptr() % 16 or any(s * item % 16 for s, n in zip(t.stride()[:3], t.shape[:3])
+                                       if n > 1)
+        if bad:
+            raise ValueError(f"{name}: the tensor-core kernels load it through TMA, which needs "
+                             f"a 16-byte aligned base and 16-byte multiple strides; got address "
+                             f"{t.data_ptr():#x}, strides {t.stride()} ({item} B elements)")
+
+
 def _strides(*ts: torch.Tensor) -> ctypes.Array:
-    vals = [s for t in ts for s in t.stride()[:3]]
+    """(batch, head, seq) element strides of each tensor; a dim of length 1
+    gets the stride D, since any stride indexes it and TMA wants one aligned."""
+    vals = [s if n > 1 else t.shape[-1] for t in ts for s, n in zip(t.stride()[:3], t.shape[:3])]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -175,6 +258,8 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         return ref.attention_with_lse_ref(q, k, v, causal=causal)
     code = _check_cuda(q, k, v)
+    if tensor_core_route(q.dtype, D):
+        _check_tma(q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -220,6 +305,8 @@ def flash_attention_bwd_dkv(
     if q.device.type == "cpu":
         return ref.attention_bwd_dkv_ref(q, k, v, lse, delta, do, causal=causal)
     code = _check_cuda(q, k, v, do)
+    if tensor_core_route(q.dtype, D):
+        _check_tma(q=q, k=k, v=v, do=do)
     _check_stats(lse, B, H, Sq, q.device)
     _check_stats(delta, B, H, Sq, q.device)
     dk = torch.empty_like(k)

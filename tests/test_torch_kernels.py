@@ -122,3 +122,40 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     q, k, v, _ = (torch.tensor(x) for x in make(1, 2, 2, 16, 16, 12))
     with pytest.raises(ValueError, match="multiple of 8"):
         fa.flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,D,tensor_core", [
+    ("bfloat16", 16, True), ("bfloat16", 80, True), ("bfloat16", 128, True),
+    ("bfloat16", 40, False), ("bfloat16", 24, False), ("float32", 80, False)])
+def test_tensor_core_route_by_dtype_and_head_dim(dtype, D, tensor_core):
+    """bf16 forward and dk/dv go to the tensor-core kernels when D is a
+    multiple of 16 (whole swizzle atoms), else to the SIMT kernels."""
+    assert fa.tensor_core_route(getattr(torch, dtype), D) is tensor_core
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115fwd_kernel_sm90ILi16EEEvT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115fwd_kernel_sm90ILi16EEEvT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used {fwd16} registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115fwd_kernel_sm90ILi80EEEvT_' for 'sm_90a'
+ptxas info    : Used 128 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115dkv_kernel_sm90ILi80EEEvT_' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("fwd16,ok", [(128, True), (96, False)])
+def test_register_split_check_reads_the_ptxas_report(fwd16, ok):
+    """A tensor-core kernel built at fewer registers than its setmaxnreg split
+    hands out would hang; the build refuses it."""
+    regs = fa.ptxas_registers(PTXAS_LOG.format(fwd16=fwd16))
+    assert len(regs) == 3
+    launch = {"fwd_kernel_sm90": 128, "dkv_kernel_sm90": 168}
+    if ok:
+        fa.check_register_split(regs, launch)
+    else:
+        with pytest.raises(RuntimeError, match="fwd_kernel_sm90ILi16.*96"):
+            fa.check_register_split(regs, launch)
+    with pytest.raises(RuntimeError, match="no instantiation"):
+        fa.check_register_split(regs, {"missing_kernel_sm90": 128})

@@ -54,6 +54,72 @@ def test_cuda_kernels_match_plain_versions(shape, dtype, tol):
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
 
 
+# bf16 on the model's layout: (B, S, H, D) tensors passed as transposed
+# (B, H, S, D) views; forward and dk/dv take the tensor-core route when D
+# is a multiple of 16 and the SIMT one otherwise
+BF16_VIEW_SHAPES = [
+    (2, 4, 2, 200, 200, 80),   # GQA 2:1, ragged S (not a multiple of any tile), D 80
+    (1, 4, 4, 256, 256, 64),   # whole tiles, D 64
+    (1, 8, 2, 130, 130, 64),   # GQA 4:1, two rows past a 128-row tile
+    (1, 2, 1, 100, 160, 80),   # decode-style Sq < Sk
+    (1, 4, 2, 300, 136, 80),   # Sq > Sk: the first 164 rows see no key
+    (1, 2, 2, 160, 160, 96),   # D 96: atoms 64 + 32
+    (1, 4, 2, 192, 192, 128),  # D 128: two 64-column atoms
+    (2, 4, 4, 64, 64, 16),     # D 16: the launcher's --reduced head, one 16-column atom
+    (1, 4, 2, 136, 136, 32),   # D 32: one 32-column atom
+    (1, 2, 1, 150, 150, 48),   # D 48: atoms 32 + 16
+    (1, 2, 2, 130, 130, 112),  # D 112: atoms 64 + 32 + 16
+    (1, 4, 2, 136, 136, 40),   # D 40, not a multiple of 16: the SIMT kernels
+    (1, 2, 1, 100, 70, 24),    # D 24, SIMT, Sq > Sk
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", BF16_VIEW_SHAPES)
+def test_cuda_bf16_kernels_on_model_layout_views(shape, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    B, H, KV, Sq, Sk, D = shape
+    q, k, v, do = (torch.tensor(x.transpose(0, 2, 1, 3).copy()).to("cuda", torch.bfloat16)
+                   .transpose(1, 2) for x in make(*shape, seed=11))
+    assert q.stride(1) == D and not q.is_contiguous()
+    o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = ref.row_delta(o_ref, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do, causal=causal)
+    dk_ref, dv_ref = ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do, causal=causal)
+    torch.cuda.synchronize()
+    assert o.stride() == q.stride() and dk.stride() == k.stride()
+    for a, b in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+    if causal and Sq > Sk:
+        empty = Sq - Sk
+        assert torch.all(o[:, :, :empty] == 0) and torch.all(lse[:, :, :empty] == fa.NEG_INF)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_route_rejects_misaligned_views():
+    """TMA needs 16-byte aligned bases and strides: the wrapper raises and
+    names the tensor; it never copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    B, H, S, D = 1, 2, 64, 80
+    q, k, v, do = (torch.tensor(x).to("cuda", torch.bfloat16) for x in make(B, H, H, S, S, D, 1))
+    flat = torch.zeros(q.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    shifted = flat[1:].view(B, H, S, D)  # base 2 bytes past an aligned address
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="^q: .*TMA"):
+        fa.flash_attention_fwd(shifted, k, v)
+    lse = torch.zeros(B, H, S, device="cuda")
+    with pytest.raises(ValueError, match="^do: .*TMA"):
+        fa.flash_attention_bwd_dkv(q, k, v, lse, lse, shifted)
+    wide = torch.zeros(B, H, S, D + 4, device="cuda", dtype=torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match="^k: .*TMA"):  # seq stride 84 elements = 168 B
+        fa.flash_attention_fwd(q, wide, v)
+
+
 @pytest.mark.cuda
 def test_cuda_autograd_function_matches_plain_grads():
     """``ops.flash_attention`` on the card (model layout, kernels in both
@@ -71,3 +137,18 @@ def test_cuda_autograd_function_matches_plain_grads():
             (out * torch.tensor(do, device=dev)).sum(), ts)])
     for a, b in zip(grads[1], grads[0]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_launcher_trains():
+    """``repro_torch.launch.train --reduced`` on the card: stablelm-3b's
+    family at head dim 16 in bf16, through all three kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.launch.train import main
+
+    fa.reset_launch_counts()
+    out = main(["--arch", "stablelm-3b", "--reduced", "--steps", "3", "--batch", "2",
+                "--seq", "64"])
+    assert out["step"] == 3 and np.isfinite(out["final_loss"])
+    assert all(fa.LAUNCHES[name] > 0 for name in fa.KERNELS), fa.LAUNCHES
