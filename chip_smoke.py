@@ -19,9 +19,11 @@ non-zero and print no result):
              (D 40, SIMT) and an f32 shape, and ``ops.flash_attention`` in
              the model layout (B, S, H, D) at the training shape, forward
              and autograd backward, against the plain forward differentiated
-             by autograd; times each kernel, its plain version and
-             ``scaled_dot_product_attention`` (yardstick only) as device
-             time, replayed from a CUDA graph;
+             by autograd; checks that dq is bitwise the same over two calls;
+             times each kernel, its plain version and the library's
+             yardsticks (``scaled_dot_product_attention`` for the forward,
+             aten's flash backward for dq and dk/dv together; never used by
+             the port) as device time, replayed from a CUDA graph;
 3. launcher — ``repro_torch.launch.train`` at full stablelm-3b width for 3
              steps (batch 2, seq 1024), budgeted from the card's memory,
              with the launch counts of the three kernels over the run;
@@ -81,10 +83,12 @@ REPLACES = {
     "flash_bwd_dq": "src/repro/kernels/flash_attention.py:185",
     "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:229",
 }
+# the library call timed beside dq and dk/dv (the same call covers both)
+BWD_LIBRARY = "aten._scaled_dot_product_flash_attention_backward (dq, dk and dv together)"
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {  # the source of each kernel on the path (bf16)
     "flash_fwd": CSRC + "flash_attention_sm90.cu",
-    "flash_bwd_dq": CSRC + "flash_attention.cu",
+    "flash_bwd_dq": CSRC + "flash_attention_sm90.cu",
     "flash_bwd_dkv": CSRC + "flash_attention_sm90.cu",
 }
 
@@ -143,6 +147,28 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / iters
+
+
+def sdpa_backward_ms(q, k, v, do):
+    """Time of aten's flash-attention backward, which computes dq, dk and dv
+    in one call (no PyTorch call computes dq alone), fed from its own
+    forward: by CUDA-graph replay, or where capture is refused by CUDA
+    events around back-to-back calls.  Returns (ms, method)."""
+    import torch
+
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, offset = aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, True)[:8]
+
+    def call():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+    try:
+        return device_ms(call), "CUDA-graph replay"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return time_ms(call), f"CUDA events around back-to-back calls (capture refused: {e})"
 
 
 def compare(label: str, tname: str, got, want, tol: float, rtol: float = 0.0) -> float:
@@ -278,11 +304,15 @@ def phase_kernels(results):
             "flash_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do),
                               lambda: ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do)),
         }
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do)
+        torch.cuda.synchronize()
+        print(f"[kernels] {name:10s} dq bitwise equal over two calls: {torch.equal(dq, dq2)}")
+        check(torch.equal(dq, dq2), "flash_bwd_dq is not deterministic")
         lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), do,
-                                                      retain_graph=True))
+        lib_bwd, lib_bwd_method = sdpa_backward_ms(q, k, v, do)
+        library = {"flash_fwd": (lib_fwd, "scaled_dot_product_attention (forward)"),
+                   "flash_bwd_dq": (lib_bwd, BWD_LIBRARY),
+                   "flash_bwd_dkv": (lib_bwd, BWD_LIBRARY)}
         for kname, (kern, plain) in timed.items():
             bound, bound_by, flops, nbytes = bounds[kname]
             entry = {
@@ -291,7 +321,7 @@ def phase_kernels(results):
                 "max_abs_err": errs[kname], "ms": device_ms(kern),
                 "plain_ms": device_ms(plain, iters=5), "bound_ms": bound,
                 "bound_by": bound_by,
-                "library_ms": lib_fwd if kname == "flash_fwd" else None,
+                "library_ms": library[kname][0], "library": library[kname][1],
             }
             results[kname] = entry
             launched = time_ms(kern)
@@ -300,8 +330,9 @@ def phase_kernels(results):
                   f"  bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB)  library {entry['library_ms']}  achieved "
                   f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s, {bound / entry['ms']:.3f} of bound")
-        print(f"[kernels] sdpa backward (dq, dk, dv in one call, host-launched through "
-              f"autograd) {lib_bwd:.4f} ms (yardstick for flash_bwd_dq + flash_bwd_dkv)")
+        ours = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkv"]["ms"]
+        print(f"[kernels] library backward {BWD_LIBRARY}: {lib_bwd:.4f} ms by {lib_bwd_method}; "
+              f"flash_bwd_dq + flash_bwd_dkv {ours:.4f} ms")
     check_model_layout(len(KERNEL_CASES))
     # cuBLAS keeps a workspace for each stream that ran a matmul, the timing
     # streams' too; drop them so that the launcher's peak memory is its own

@@ -9,11 +9,10 @@
 //   flash_bwd_dkv  <- _bwd_dkv_kernel  (flash_attention_bwd, pallas_call at :326)
 //
 // Routes, by dtype and D (an explicit switch in the C entry points below,
-// not a fallback): bf16 forward and dk/dv with D a multiple of 16 go to the
+// not a fallback): bf16 inputs with D a multiple of 16 go to the
 // tensor-core kernels of flash_attention_sm90.cu (wgmma, TMA, mbarrier
 // ring), whose operands are whole swizzle atoms of 16, 32 or 64 columns;
-// f32 inputs, bf16 with any other D, and dq for both dtypes run the SIMT
-// kernels of this file.
+// f32 inputs and bf16 with any other D run the SIMT kernels of this file.
 //
 // What bounds them on an H100, at the training shape (B 2, H 32, S 1024,
 // D 80, bf16, causal), from chip_smoke.attention_bounds: the forward moves
@@ -41,10 +40,9 @@
 //     output columns tx + 16 j (j < 8, so D <= 128).  Row reductions are
 //     shuffles inside the 16 lanes that share ty.  Shared-memory rows have
 //     an odd pitch (D + 1) so the strided column reads hit distinct banks;
-//   * inputs are f32 or bf16 (bf16 forward and dk/dv only when D is not a
-//     multiple of 16), any element strides for the batch,
-//     head and sequence dims (the last dim must be contiguous), all
-//     arithmetic f32;
+//   * inputs are f32 or bf16 (bf16 only when D is not a multiple of 16),
+//     any element strides for the batch, head and sequence dims (the last
+//     dim must be contiguous), all arithmetic f32;
 //   * ragged sequence lengths are bounds-checked, never padded;
 //   * causal masking uses the decode-style offset off = Sk - Sq (query i
 //     sees keys j <= i + off), and kv tiles strictly above the band are
@@ -553,14 +551,18 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse,
                    const long long* strides, int B, int H, int KV, int Sq, int Sk, int D,
                    int causal, float scale, cudaStream_t stream);
+int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dq, const long long* strides,
+                      int B, int H, int KV, int Sq, int Sk, int D, int causal, float scale,
+                      cudaStream_t stream);
 int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        const long long* strides, int B, int H, int KV, int Sq, int Sk, int D,
                        int causal, float scale, cudaStream_t stream);
 
 // Plain C interface for ctypes.  dtype: 0 = float32 (SIMT kernels),
-// 1 = bfloat16 (forward and dk/dv: the tensor-core kernels when D is a
-// multiple of SM90_D_STEP, else SIMT; dq: SIMT).
+// 1 = bfloat16 (the tensor-core kernels when D is a multiple of
+// SM90_D_STEP, else SIMT).
 // Each tensor's strides are given as (batch, head, seq) element strides of
 // its (B, heads, S, D) view; lse and delta are contiguous (B, H, Sq)
 // float32.  Returns the cudaError_t of the launch (0 on success), or for
@@ -596,6 +598,9 @@ int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v, const v
   if (dtype == 0)
     return launch_dq<float>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, dqs, B, H, KV, Sq, Sk,
                             D, causal, scale, st);
+  if (dtype == 1 && D % SM90_D_STEP == 0)
+    return flash_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, strides, B, H, KV, Sq, Sk, D, causal,
+                             scale, st);
   if (dtype == 1)
     return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, dqs, B, H, KV,
                                     Sq, Sk, D, causal, scale, st);

@@ -1,18 +1,20 @@
-// Flash attention in bf16 for Hopper (sm_90a): the forward and the dk/dv
-// backward on the tensor cores, fed by TMA through an mbarrier ring.
+// Flash attention in bf16 for Hopper (sm_90a): the forward and both
+// backward kernels on the tensor cores, fed by TMA through an mbarrier ring.
 //
 // Replaces, for bf16 inputs, the Pallas TPU kernels of
 // repro/kernels/flash_attention.py:
 //   fwd_kernel_sm90  <- _fwd_kernel      (flash_attention_fwd, pallas_call at :154)
+//   dq_kernel_sm90   <- _bwd_dq_kernel   (flash_attention_bwd, pallas_call at :311)
 //   dkv_kernel_sm90  <- _bwd_dkv_kernel  (flash_attention_bwd, pallas_call at :326)
 // The C entry points in flash_attention.cu route bf16 here and f32 to the
-// SIMT kernels there, by dtype; dq stays SIMT for both dtypes.
+// SIMT kernels there, by dtype and D.
 //
 // What bounds them on an H100, at the training shape (B 2, H 32, S 1024,
 // D 80, causal): the forward moves 42 MB (12.6 us at 3.35 TB/s) for 10.7
 // GFLOP of causal products (10.9 us at 989 TFLOP/s), so bytes bound it,
-// barely; dk/dv does 21.5 GFLOP (21.7 us) against 63 MB (18.9 us), so the
-// tensor-core rate bounds it.  Either way every product has to run on the
+// barely; dq does 16.1 GFLOP (16.3 us) against 53 MB (15.8 us) and dk/dv
+// 21.5 GFLOP (21.7 us) against 63 MB (18.9 us), so the tensor-core rate
+// bounds both backward kernels.  Either way every product has to run on the
 // tensor cores and every tile load has to overlap them.  At D = 80 a third
 // resource nearly ties: each score costs 4 * 80 product FLOPs and one exp2,
 // and the SM's 16 exp2 a clock take 80 % as long as its tensor cores take
@@ -23,7 +25,7 @@
 //     come from shared memory (both operands K-major); the second product of
 //     each pair takes the probabilities (or dS) as the A operand straight
 //     from the f32 accumulator registers, rounded to bf16, and the B operand
-//     MN-major from the same shared tile (V, dO or Q).
+//     MN-major from the same shared tile (V, dO, Q or K).
 //   * TMA (cp.async.bulk.tensor, 4-d tensor maps over (D, S, heads, batch)
 //     built on the host from each tensor's strides) loads every tile; rows
 //     past S read as zero, so ragged lengths are never padded in memory, and
@@ -34,8 +36,8 @@
 //     (24 a thread) to the consumers, so the accumulators and fragments fit
 //     without spilling (at the launch allocation they spilled).
 //   * Consumer warpgroups run unsynchronised (two in a dk/dv block, one in
-//     each of the two forward blocks an SM holds), so the softmax (or the P
-//     and dS step) of one overlaps the products of another.  Software
+//     each of the two forward or dq blocks an SM holds), so the softmax (or
+//     the P and dS step) of one overlaps the products of another.  Software
 //     pipelining inside a warpgroup and a fixed turn order between two
 //     (FlashAttention-3's ping-pong) were tried and gained nothing at the
 //     path's shape, so each loop stays one product pair at a time.
@@ -63,9 +65,26 @@
 // dK and dV accumulate in f32 registers across the whole group: the group
 // fold needs no atomics and the result is deterministic.
 //
+// dq: the forward's skeleton with one more product a tile and no online
+// max, since lse is given.  One block per (batch*head, 64-row q tile), the
+// heaviest causal tiles first, two blocks an SM; Q and dO are loaded once
+// and stay, lse and delta of the thread's two rows stay in registers, and
+// K and V stream through 3 stages of 64 kv rows, which keeps the S and dP
+// accumulators at 32 floats each beside dQ's D/2.  At the path's shape this
+// was a little faster than 128-row kv tiles, and than 128-row blocks whose
+// two consumer warpgroups share each K/V stage (half the K/V traffic); a
+// separate wgmma group for dP, so that P's exp2 overlaps it, gained nothing.
+// Per tile: S = Q K^T and dP = dO V^T, then P and dS on the accumulators,
+// then dQ += dS K with K read MN-major from the tile S used.  dQ is summed
+// in f32 registers by one thread per element in kv order and written once:
+// no atomics (FlashAttention-2/3 add dq from the dk/dv kernel with atomics,
+// which makes the gradient depend on the run), so the result is
+// deterministic.
+//
 // As in the SIMT kernels: the causal offset is decode-style, off = Sk - Sq
 // (query i sees keys j <= i + off); a row that sees no key gets zero output,
-// lse = -1e30 and zero gradient.  Unlike the Pallas kernels (and the SIMT
+// lse = -1e30 and zero gradient (every P of such a row is masked, not
+// left to exp2 of a huge number).  Unlike the Pallas kernels (and the SIMT
 // ones), P and dS are rounded to bf16 before the second products; the sums
 // stay f32.  tests/test_torch_kernel_numerics.py pins that rounding against
 // the reference on the CPU.
@@ -774,6 +793,196 @@ __global__ void __launch_bounds__(DKV_THREADS, DKV_BLOCKS) dkv_kernel_sm90(const
   }
 }
 
+// -------------------------------------------------------------- backward dq
+
+constexpr int DQ_BM = 64;           // q rows of a block: one consumer warpgroup
+constexpr int DQ_BN = 64;           // kv rows of a stage
+constexpr int DQ_STAGES = 3;
+constexpr int DQ_THREADS = 2 * WG;  // the consumer warpgroup + the producer's
+constexpr int DQ_BLOCKS = 2;        // blocks an SM
+// 128 a thread at launch, 232 for the consumer after the split
+constexpr int DQ_CONSUMER_REGS = consumer_regs(DQ_THREADS, DQ_BLOCKS, 1);
+static_assert(DQ_CONSUMER_REGS <= 256, "setmaxnreg takes at most 256");
+
+template <int D>
+struct DqParams {
+  CUtensorMap q[Cols<D>::N], k[Cols<D>::N], v[Cols<D>::N], dout[Cols<D>::N];
+  const float* lse;
+  const float* delta;
+  __nv_bfloat16* dq;
+  long long dq_sb, dq_sh, dq_ss;  // element strides of dq's (B, H, Sq, D) view
+  int H, KV, Sq, Sk, causal;
+  float scale;
+};
+
+template <int D>
+constexpr size_t dq_smem() {
+  return size_t(2 * DQ_BM + 2 * DQ_STAGES * DQ_BN) * D * 2 + 8 * (1 + 2 * DQ_STAGES) + 1024;
+}
+
+// P = exp(S scale - lse) and dS = P (dP - delta) scale on the accumulators
+// (rows: q r0, r0 + 8; columns: kv k0 + 8j + 2t + {0, 1}), left as bf16 A
+// fragments in da.  lse2 is lse * log2(e) of the thread's two rows.
+template <bool MASK>
+__device__ __forceinline__ void dq_step(float (&s)[DQ_BN / 2], float (&dp)[DQ_BN / 2],
+                                        uint32_t (&da)[DQ_BN / 16][4], const float (&lse2)[2],
+                                        const float (&delta)[2], float sl2, float scale, int r0,
+                                        int k0, int t, int Sq, int Sk, int off, int causal) {
+#pragma unroll
+  for (int j = 0; j < DQ_BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int idx = 4 * j + 2 * i + c;
+        float pv = ex2(s[idx] * sl2 - lse2[i]);
+        if (MASK && !visible(r0 + 8 * i, k0 + 8 * j + 2 * t + c, Sq, Sk, off, causal)) pv = 0.f;
+        dp[idx] = pv * (dp[idx] - delta[i]) * scale;
+      }
+#pragma unroll
+  for (int kk = 0; kk < DQ_BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, DQ_BLOCKS) dq_kernel_sm90(const __grid_constant__ DqParams<D> p) {
+  using C = Cols<D>;
+  constexpr uint32_t TILE_Q = DQ_BM * D * 2, TILE_KV = DQ_BN * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sDO = base + TILE_Q;
+  auto sK = [&](int st) { return base + 2 * TILE_Q + 2 * st * TILE_KV; };
+  auto sV = [&](int st) { return base + 2 * TILE_Q + (2 * st + 1) * TILE_KV; };
+  const uint32_t bars = base + 2 * TILE_Q + 2 * DQ_STAGES * TILE_KV;
+  const uint32_t q_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + DQ_STAGES + st); };
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.KV);
+  const int n_qt = (p.Sq + DQ_BM - 1) / DQ_BM;
+  const int q0 = (n_qt - 1 - blockIdx.y) * DQ_BM;  // the heaviest causal tiles start first
+  const int off = p.Sk - p.Sq;
+  int n_kt = (p.Sk + DQ_BN - 1) / DQ_BN;
+  if (p.causal) {
+    const int lim = min(q0 + DQ_BM, p.Sq) - 1 + off;  // last key the block's last row sees
+    n_kt = lim < 0 ? 0 : min(n_kt, lim / DQ_BN + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < DQ_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), WG / 32);  // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG) {  // ---- producer warpgroup: one thread starts the TMA loads
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == WG && n_kt > 0) {
+      mbar_expect_tx(q_full, 2 * TILE_Q);
+      for_atoms<D>([&](auto ci) {
+        constexpr int c = decltype(ci)::value;
+        tma_load(sQ + C::offset(c, DQ_BM), &p.q[c], q_full, C::col(c), q0, h, b);
+        tma_load(sDO + C::offset(c, DQ_BM), &p.dout[c], q_full, C::col(c), q0, h, b);
+      });
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % DQ_STAGES;
+        mbar_wait(empty(st), ((kt / DQ_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * TILE_KV);
+        for_atoms<D>([&](auto ci) {
+          constexpr int c = decltype(ci)::value;
+          tma_load(sK(st) + C::offset(c, DQ_BN), &p.k[c], full(st), C::col(c), kt * DQ_BN, hk, b);
+          tma_load(sV(st) + C::offset(c, DQ_BN), &p.v[c], full(st), C::col(c), kt * DQ_BN, hk, b);
+        });
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: the block's 64 q rows
+  regs_inc<DQ_CONSUMER_REGS>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int r0 = q0 + 16 * warp + lane / 4;  // this thread's q rows: r0, r0 + 8
+  const float sl2 = p.scale * LOG2E;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    lse2[i] = row < p.Sq ? p.lse[(long long)bh * p.Sq + row] * LOG2E : 0.f;
+    delta[i] = row < p.Sq ? p.delta[(long long)bh * p.Sq + row] : 0.f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  if (n_kt > 0) mbar_wait(q_full, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt % DQ_STAGES;
+    const int k0 = kt * DQ_BN;
+    mbar_wait(full(st), (kt / DQ_STAGES) & 1);
+
+    // S = Q K^T and dP = dO V^T over the atoms of D
+    float s[DQ_BN / 2], dp[DQ_BN / 2];
+    wg_fence();
+    for_atoms<D>([&](auto ci) {
+      constexpr int c = decltype(ci)::value, W = C::width(c);
+#pragma unroll
+      for (int kk = 0; kk < W / 16; ++kk) {
+        const uint32_t a_off = C::offset(c, DQ_BM) + 32 * kk;
+        const uint32_t b_off = C::offset(c, DQ_BN) + 32 * kk;
+        mma_ss<DQ_BN>(s, desc(sQ + a_off, W), desc(sK(st) + b_off, W), c > 0 || kk > 0);
+        mma_ss<DQ_BN>(dp, desc(sDO + a_off, W), desc(sV(st) + b_off, W), c > 0 || kk > 0);
+      }
+    });
+    wg_commit();
+    wg_wait0();
+    keep<DQ_BN / 2>(s);
+    keep<DQ_BN / 2>(dp);
+
+    uint32_t da[DQ_BN / 16][4];
+    const bool mask = k0 + DQ_BN > p.Sk || (p.causal && k0 + DQ_BN - 1 > q0 + off);
+    if (mask)
+      dq_step<true>(s, dp, da, lse2, delta, sl2, p.scale, r0, k0, t, p.Sq, p.Sk, off, p.causal);
+    else
+      dq_step<false>(s, dp, da, lse2, delta, sl2, p.scale, r0, k0, t, p.Sq, p.Sk, off, p.causal);
+
+    // dQ += dS K: dS from registers, K MN-major from the tile S used, one
+    // wgmma group per atom
+    wg_fence();
+    for_atoms<D>([&](auto ci) {
+      constexpr int c = decltype(ci)::value, W = C::width(c);
+#pragma unroll
+      for (int kk = 0; kk < DQ_BN / 16; ++kk)
+        mma_rs<W>(dq + C::col(c) / 2, da[kk],
+                  desc(sK(st) + C::offset(c, DQ_BN) + kk * 16 * 2 * W, W));
+    });
+    wg_commit();
+    wg_wait0();
+    keep<D / 2>(dq);
+    keep<DQ_BN / 16>(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+  // epilogue: dq in q's dtype and strides
+  __nv_bfloat16* dqb = p.dq + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + row * p.dq_ss + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+  }
+}
+
 // ------------------------------------------------------------ host side
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime's
@@ -878,9 +1087,34 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return int(cudaGetLastError());
 }
 
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, void* dq, const long long* s, int B, int H, int KV, int Sq,
+              int Sk, int causal, float scale, cudaStream_t stream) {
+  DqParams<D> p;
+  for (int c = 0; c < Cols<D>::N; ++c) {
+    int err = encode<D>(&p.q[c], q, s + 0, Sq, H, B, c, DQ_BM);
+    if (!err) err = encode<D>(&p.k[c], k, s + 3, Sk, KV, B, c, DQ_BN);
+    if (!err) err = encode<D>(&p.v[c], v, s + 6, Sk, KV, B, c, DQ_BN);
+    if (!err) err = encode<D>(&p.dout[c], dout, s + 9, Sq, H, B, c, DQ_BM);
+    if (err) return err;
+  }
+  p.lse = lse, p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dq_sb = s[12], p.dq_sh = s[13], p.dq_ss = s[14];
+  p.H = H, p.KV = KV, p.Sq = Sq, p.Sk = Sk, p.causal = causal, p.scale = scale;
+  const size_t smem = dq_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel_sm90<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(B * H, (Sq + DQ_BM - 1) / DQ_BM);
+  dq_kernel_sm90<D><<<grid, DQ_THREADS, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
-// Called by flash_fwd / flash_bwd_dkv (flash_attention.cu) for bf16 inputs
+// Called by flash_fwd / flash_bwd_dq / flash_bwd_dkv (flash_attention.cu) for bf16 inputs
 // whose D is a multiple of 16.  Strides as there: (batch, head, seq)
 // element strides per tensor.  The wrapper has checked the 16-byte
 // alignment TMA needs.  Returns the cudaError_t of the launch, or
@@ -899,6 +1133,21 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* 
 #undef FWD_CASE
 }
 
+int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dq, const long long* strides,
+                      int B, int H, int KV, int Sq, int Sk, int D, int causal, float scale,
+                      cudaStream_t stream) {
+#define DQ_CASE(d)                                                                             \
+  case d:                                                                                      \
+    return launch_dq<d>(q, k, v, dout, lse, delta, dq, strides, B, H, KV, Sq, Sk, causal, scale, \
+                        stream);
+  switch (D) {
+    SM90_HEAD_DIMS(DQ_CASE)
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef DQ_CASE
+}
+
 int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        const long long* strides, int B, int H, int KV, int Sq, int Sk, int D,
@@ -914,11 +1163,12 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* 
 #undef DKV_CASE
 }
 
-// The registers a thread that kernel 0 (fwd_kernel_sm90) or 1
-// (dkv_kernel_sm90) is launched with, which its setmaxnreg split assumes;
-// -1 for another index.
+// The registers a thread that kernel 0 (fwd_kernel_sm90), 1 (dkv_kernel_sm90)
+// or 2 (dq_kernel_sm90) is launched with, which its setmaxnreg split
+// assumes; -1 for another index.
 extern "C" int flash_sm90_launch_regs(int kernel) {
   return kernel == 0 ? launch_regs(FWD_THREADS, FWD_BLOCKS)
          : kernel == 1 ? launch_regs(DKV_THREADS, DKV_BLOCKS)
+         : kernel == 2 ? launch_regs(DQ_THREADS, DQ_BLOCKS)
                        : -1;
 }

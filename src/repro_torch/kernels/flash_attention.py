@@ -1,11 +1,11 @@
 """Flash attention on Hopper: build, bind and launch the CUDA kernels.
 
 Replaces ``repro/kernels/flash_attention.py`` (three Pallas TPU kernels).
-The kernels live in ``csrc/``: bf16 forward and dk/dv on the tensor cores
-in ``flash_attention_sm90.cu`` (D a multiple of 16), the f32 kernels, dq
-(both dtypes) and bf16 at any other D on the CUDA cores in
-``flash_attention.cu``, whose C entry points pick the route by dtype and
-D, as ``tensor_core_route`` does here.  Each file's header says what its kernels replace and what bounds
+The kernels live in ``csrc/``: bf16 forward, dq and dk/dv on the tensor
+cores in ``flash_attention_sm90.cu`` (D a multiple of 16), the f32 kernels
+and bf16 at any other D on the CUDA cores in ``flash_attention.cu``, whose
+C entry points pick the route by dtype and D, as ``tensor_core_route`` does
+here.  Each file's header says what its kernels replace and what bounds
 them on an H100.  They are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` (one nvcc per source, run
 together, then one link) into a plain-C shared library under
@@ -14,9 +14,10 @@ repository root, and loaded with ``ctypes``.
 
 Each wrapper takes the kernel layout (q (B, H, Sq, D); k, v (B, KV, Sk, D),
 any strides with the last dim contiguous; the tensor-core route loads
-through TMA and also needs 16-byte aligned bases and strides).  A tensor on the CPU goes to the plain version in
-``kernels/ref.py``; a CUDA tensor goes to the kernel, or the wrapper
-raises.  ``LAUNCHES`` counts the launches of each kernel.
+through TMA and also needs 16-byte aligned bases and strides).  A tensor on
+the CPU goes to the plain version in ``kernels/ref.py``; a CUDA tensor goes
+to the kernel, or the wrapper raises.  ``LAUNCHES`` counts the launches of
+each kernel.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ MAX_HEAD_DIM = 128
 
 SM90_D_STEP = 16  # the tensor-core kernels take bf16 at D a multiple of this
 # their kernel functions, indexed as ``flash_sm90_launch_regs`` takes them
-SM90_KERNELS = ("fwd_kernel_sm90", "dkv_kernel_sm90")
+SM90_KERNELS = ("fwd_kernel_sm90", "dkv_kernel_sm90", "dq_kernel_sm90")
 
 SOURCES = tuple(Path(__file__).parent / "csrc" / name
                 for name in ("flash_attention.cu", "flash_attention_sm90.cu"))
@@ -209,8 +210,8 @@ def _check_stats(t: torch.Tensor, B: int, H: int, Sq: int, dev: torch.device) ->
 
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
-    """Whether the forward and dk/dv run the tensor-core kernels (bf16, D a
-    multiple of ``SM90_D_STEP``) or the SIMT ones; the C entry points
+    """Whether the forward, dq and dk/dv run the tensor-core kernels (bf16,
+    D a multiple of ``SM90_D_STEP``) or the SIMT ones; the C entry points
     switch on the same rule."""
     return dtype == torch.bfloat16 and D % SM90_D_STEP == 0
 
@@ -274,11 +275,13 @@ def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, do: torch.Tensor, causal: bool = True,
 ) -> torch.Tensor:
-    """dq (B,H,Sq,D) in q's dtype and strides."""
+    """dq (B,H,Sq,D) in q's dtype and strides; deterministic (no atomics)."""
     B, H, KV, Sq, Sk, D = _check_inputs(q, k, v, do)
     if q.device.type == "cpu":
         return ref.attention_bwd_dq_ref(q, k, v, lse, delta, do, causal=causal)
     code = _check_cuda(q, k, v, do)
+    if tensor_core_route(q.dtype, D):
+        _check_tma(q=q, k=k, v=v, do=do)
     _check_stats(lse, B, H, Sq, q.device)
     _check_stats(delta, B, H, Sq, q.device)
     dq = torch.empty_like(q)

@@ -9,7 +9,7 @@ Layouts as in the kernels: q (B, H, Sq, D); k, v (B, KV, Sk, D) with
 KV | H.  Causal masking is decode-style: query i sees keys j <= i + Sk - Sq.
 A row that sees no key (only when Sq > Sk) has zero output, lse = -1e30
 and zero gradients.  The reference gives the mean of v there instead; that
-case is outside the parity domain (ROADMAP.md, kernel queue).
+case is outside the parity domain (ROADMAP.md §3).
 """
 
 from __future__ import annotations

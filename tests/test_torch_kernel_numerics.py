@@ -1,8 +1,9 @@
 """The rounding points of the bf16 tensor-core kernels, pinned on the CPU.
 
 ``csrc/flash_attention_sm90.cu`` rounds the probabilities P (forward and
-dk/dv) and dS (dk/dv) to bf16 before the second product of each pair, and
-sums in f32; the Pallas kernels of the reference keep P and dS in f32.
+dk/dv) and dS (dq and dk/dv) to bf16 before the second product of each
+pair, and sums in f32; the Pallas kernels of the reference keep P and dS in
+f32.
 A plain torch emulation of those rounding points, written here, is held
 against the reference's Pallas kernels in interpret mode (forward, and
 ``jax.grad`` through the custom VJP, as ``tests/test_kernels.py`` runs
@@ -41,8 +42,8 @@ def bf16_inputs(B, H, KV, S, D, seed):
 def emulate(q, k, v, do, causal):
     """The sm90 kernels' arithmetic in plain torch, f32 on bf16 values:
     P rounded to bf16 before P·V (forward) and P^T·dO, dS rounded before
-    dS^T·Q (dk/dv), dq = dS·K with dS in f32 (the SIMT dq kernel).  Returns
-    out (bf16), lse, dq, dk, dv (bf16), all in the (B, H, S, D) layout."""
+    dS^T·Q (dk/dv) and before dS·K (dq).  Returns out (bf16), lse, dq, dk,
+    dv (bf16), all in the (B, H, S, D) layout."""
     q, k, v, do = (torch.tensor(x) for x in (q, k, v, do))
     B, H, S, D = q.shape
     KV = k.shape[1]
@@ -66,7 +67,7 @@ def emulate(q, k, v, do, causal):
     fold = lambda g: g.reshape(B, KV, H // KV, S, D).sum(2)  # noqa: E731
     dv = bf(fold(bf(p).transpose(-1, -2) @ do))
     dk = bf(fold(bf(ds).transpose(-1, -2) @ q))
-    dq = bf(ds @ kf)
+    dq = bf(bf(ds) @ kf)
     return out, lse, dq, dk, dv
 
 

@@ -128,9 +128,13 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     ("bfloat16", 16, True), ("bfloat16", 80, True), ("bfloat16", 128, True),
     ("bfloat16", 40, False), ("bfloat16", 24, False), ("float32", 80, False)])
 def test_tensor_core_route_by_dtype_and_head_dim(dtype, D, tensor_core):
-    """bf16 forward and dk/dv go to the tensor-core kernels when D is a
-    multiple of 16 (whole swizzle atoms), else to the SIMT kernels."""
+    """bf16 forward, dq and dk/dv go to the tensor-core kernels when D is a
+    multiple of 16 (whole swizzle atoms), else to the SIMT kernels: one
+    rule for the three, each with its sm90 kernel, whose register split
+    ``build()`` checks."""
     assert fa.tensor_core_route(getattr(torch, dtype), D) is tensor_core
+    assert sorted(fa.SM90_KERNELS) == ["dkv_kernel_sm90", "dq_kernel_sm90", "fwd_kernel_sm90"]
+    assert fa.KERNELS == ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 PTXAS_LOG = """\

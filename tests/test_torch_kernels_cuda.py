@@ -55,8 +55,8 @@ def test_cuda_kernels_match_plain_versions(shape, dtype, tol):
 
 
 # bf16 on the model's layout: (B, S, H, D) tensors passed as transposed
-# (B, H, S, D) views; forward and dk/dv take the tensor-core route when D
-# is a multiple of 16 and the SIMT one otherwise
+# (B, H, S, D) views; forward, dq and dk/dv take the tensor-core route when
+# D is a multiple of 16 and the SIMT one otherwise
 BF16_VIEW_SHAPES = [
     (2, 4, 2, 200, 200, 80),   # GQA 2:1, ragged S (not a multiple of any tile), D 80
     (1, 4, 4, 256, 256, 64),   # whole tiles, D 64
@@ -87,16 +87,19 @@ def test_cuda_bf16_kernels_on_model_layout_views(shape, causal):
     o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v, causal=causal)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = ref.row_delta(o_ref, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, causal=causal)
+    dq_ref = ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do, causal=causal)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do, causal=causal)
     dk_ref, dv_ref = ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do, causal=causal)
     torch.cuda.synchronize()
-    assert o.stride() == q.stride() and dk.stride() == k.stride()
-    for a, b in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+    assert o.stride() == q.stride() and dq.stride() == q.stride() and dk.stride() == k.stride()
+    for a, b in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=2e-2)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
     if causal and Sq > Sk:
         empty = Sq - Sk
         assert torch.all(o[:, :, :empty] == 0) and torch.all(lse[:, :, :empty] == fa.NEG_INF)
+        assert torch.all(dq[:, :, :empty] == 0)
 
 
 @pytest.mark.cuda
@@ -115,9 +118,35 @@ def test_cuda_bf16_route_rejects_misaligned_views():
     lse = torch.zeros(B, H, S, device="cuda")
     with pytest.raises(ValueError, match="^do: .*TMA"):
         fa.flash_attention_bwd_dkv(q, k, v, lse, lse, shifted)
+    with pytest.raises(ValueError, match="^do: .*TMA"):
+        fa.flash_attention_bwd_dq(q, k, v, lse, lse, shifted)
+    with pytest.raises(ValueError, match="^q: .*TMA"):
+        fa.flash_attention_bwd_dq(shifted, k, v, lse, lse, do)
     wide = torch.zeros(B, H, S, D + 4, device="cuda", dtype=torch.bfloat16)[..., :D]
     with pytest.raises(ValueError, match="^k: .*TMA"):  # seq stride 84 elements = 168 B
         fa.flash_attention_fwd(q, wide, v)
+    with pytest.raises(ValueError, match="^v: .*TMA"):
+        fa.flash_attention_bwd_dq(q, k, wide, lse, lse, do)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_dq_is_deterministic_at_the_path_shape():
+    """dq at the training path's shape (B 2, H 32, S 1024, D 80, bf16,
+    causal) is bitwise the same over two calls: each element is summed by
+    one thread in a fixed order, with no atomics; and it matches the plain
+    version within the bf16 limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do = (torch.tensor(x).to("cuda", torch.bfloat16)
+                   for x in make(2, 32, 32, 1024, 1024, 80, seed=13))
+    o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v)
+    delta = ref.row_delta(o_ref, do)
+    first = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do)
+    second = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do)
+    want = ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.float(), want.float(), rtol=2.0 ** -7, atol=2e-2)
 
 
 @pytest.mark.cuda
