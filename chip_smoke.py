@@ -36,7 +36,16 @@ non-zero and print no result):
 6. trade   — the paper's trade on the card: the same width at 8 units, one
              forward+backward with a DP remat plan at half the all-cached
              peak and one without; same loss, lower measured peak;
-7. result  — the ``kernels`` JSON line, the card's name and power limit,
+7. planned — the front door at the same width and depth:
+             ``repro_torch.plan_function`` traces the loss with ``make_fx``
+             (one node per aten op, flash attention one opaque node), plans
+             it at the exact minimal feasible budget and lowers the plan onto
+             autograd (``"fx"``); against plain autograd on the same function:
+             same loss and grads, the plan's extra ``flash_fwd`` launches,
+             lower measured peak; then two ``Trainer(plan_budget=...)`` steps
+             beside two unplanned ones from the same weights and batches
+             (same losses and grad norms, re-planning nothing);
+8. result  — the ``kernels`` JSON line, the card's name and power limit,
              and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and outside a checkout.
@@ -55,6 +64,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TRAIN_ARGS = ["--arch", "stablelm-3b", "--steps", "3", "--batch", "2", "--seq", "1024"]
 TRADE_UNITS = 8
+# the planned phase's depth: planning time grows steeply with the node count
+# (603 nodes at 8 units); width is never cut
+PLANNED_UNITS = 8
 # (name, B, H, KV, Sq, Sk, D, dtype name); the first is the training path's shape
 KERNEL_CASES = [
     ("path", 2, 32, 32, 1024, 1024, 80, "bfloat16"),
@@ -520,6 +532,21 @@ def phase_profile(state):
     del tr, model, grads
 
 
+def grads_agree(tag: str, got, want) -> bool:
+    """Two lists of grads bitwise equal, or within rtol 1e-3; prints the
+    worst relative error."""
+    import torch
+
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    worst = 0.0 if bitwise else max(
+        ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+        for a, b in zip(got, want) if not torch.equal(a, b))
+    ok = bitwise or all(torch.allclose(a, b, rtol=1e-3, atol=0) for a, b in zip(got, want))
+    print(f"[{tag}] grads bitwise {bitwise}"
+          + ("" if bitwise else f", max rel err {worst:.3e} (limit rtol 1e-3)"))
+    return ok
+
+
 def phase_trade(state):
     """Planned vs unplanned forward+backward on the same weights and batch."""
     import dataclasses
@@ -570,14 +597,9 @@ def phase_trade(state):
 
     l0, g0, peak0, c0 = run((TRADE_UNITS,), (False,))
     l1, g1, peak1, c1 = run(sp.sizes, sp.remat)
-    bitwise = all(torch.equal(a, b) for a, b in zip(g0, g1))
-    worst = max(((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
-                for a, b in zip(g1, g0) if not torch.equal(a, b)) if not bitwise else 0.0
-    grads_ok = bitwise or all(torch.allclose(a, b, rtol=1e-3, atol=0) for a, b in zip(g1, g0))
     print(f"[trade] loss unplanned {l0.item():.8f} planned {l1.item():.8f} "
           f"bitwise {torch.equal(l0, l1)}")
-    print(f"[trade] grads bitwise {bitwise}"
-          + ("" if bitwise else f", max rel err {worst:.3e} (limit rtol 1e-3)"))
+    grads_ok = grads_agree("trade", g1, g0)
     print(f"[trade] peak above resident state: unplanned {peak0} B, planned {peak1} B "
           f"(DP predicted {res.peak_memory:.0f} B planned, "
           f"{res_all.peak_memory:.0f} B all-cached)")
@@ -588,6 +610,154 @@ def phase_trade(state):
     check(c1["flash_fwd"] - c0["flash_fwd"] == recomputed,
           "planned run did not recompute the planned units")
     check(peak1 < peak0, "planned run did not lower the measured peak")
+
+
+def phase_planned(results):
+    """``plan_function`` on the full-width loss, against plain autograd."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    data = importlib.import_module("repro_torch.data")
+    core = importlib.import_module("repro_torch.core")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    train = importlib.import_module("repro_torch.train")
+    
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    n = PLANNED_UNITS
+    cfg = dataclasses.replace(configs.get_config("stablelm-3b"), n_layers=n)
+    model = models.build_model(cfg, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    stream = data.SyntheticLM(data.DataConfig(cfg.vocab_size, 1024, 2))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(0).items()}
+
+    def loss_fn(m, b):  # no remat of its own: the plan decides
+        return m.loss(b, (n,), (False,))
+
+    step_loss, params = train.functional_loss(loss_fn, model)
+    t0 = time.perf_counter()
+    carrier = lowering.TracedCarrier.trace(step_loss, (params, batch))
+    trace_s = time.perf_counter() - t0
+    g = carrier.to_graph()
+    flash = {nd.idx for nd in g.nodes if nd.kind == "flash_attention"}
+    vanilla_peak = core.vanilla_peak(g, liveness=False)
+    planner = core.get_default_planner()
+    t0 = time.perf_counter()
+    half = planner.plan(g, vanilla_peak / 2, "approx_dp")
+    half_s = time.perf_counter() - t0
+    half_flash = flash & set().union(*(s.recompute for s in half.plan.segments))
+    print(f"[planned] {n} units: {g.n} nodes ({len(flash)} flash_attention), traced in "
+          f"{trace_s:.2f} s; all-cached peak {vanilla_peak:.6e} B without liveness, "
+          f"{core.vanilla_peak(g):.6e} B liveness-tight; node outputs "
+          f"{sum(nd.memory for nd in g.nodes):.6e} B in all")
+    print(f"[planned] at half the vanilla peak ({vanilla_peak / 2:.6e} B): planned in "
+          f"{half_s:.2f} s, peak {half.plan.peak_memory:.6e} B, overhead "
+          f"{half.plan.overhead:g}, {half.plan.num_segments} segments, "
+          f"{len(half_flash)} flash nodes recomputed")
+
+    t0 = time.perf_counter()
+    planned = lowering.plan_function(step_loss, planner=planner)  # the exact minimal budget
+    lowered = planned.lowered_for(params, batch)
+    plan_s = time.perf_counter() - t0
+    plan = lowered.plan
+    rec = set().union(*(s.recompute for s in plan.segments))
+    rec_flash = flash & rec
+    print(f"[planned] at the exact minimal feasible budget {lowered.report.budget:.6e} B: "
+          f"traced and planned in {plan_s:.2f} s, backend {lowered.backend}, peak "
+          f"{plan.peak_memory:.6e} B, overhead {plan.overhead:g} of {g.total_time:g}, "
+          f"{plan.num_segments} segments ({sum(1 for s in plan.segments if s.recompute)} "
+          f"recompute), {len(rec)} nodes and {len(rec_flash)} flash nodes recomputed")
+    check(bool(rec_flash), "the plan recomputes no flash-attention node")
+
+    def run(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = fn(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - before
+        gbytes = sum(t.numel() * t.element_size() for t in grads.values())
+        return loss.cpu(), grads, peak, gbytes, dict(fa.LAUNCHES), ms
+
+    planned(params, batch)  # warm-up (cuBLAS handles, workspaces)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss = step_loss({k: p.detach().requires_grad_() for k, p in params.items()}, batch)
+    torch.cuda.synchronize()
+    print(f"[planned] vanilla forward alone: autograd holds "
+          f"{torch.cuda.memory_allocated() - before} B after it")
+    del loss
+    l0, g0, peak0, gb0, c0, ms0 = run(lowering.vanilla_traced_value_and_grad(carrier))
+    l1, g1, peak1, gb1, c1, ms1 = run(planned)
+    for tag, loss, peak, gb, c, ms in (("vanilla", l0, peak0, gb0, c0, ms0),
+                                       ("planned", l1, peak1, gb1, c1, ms1)):
+        print(f"[planned] {tag:7s} loss {loss.item():.8f}; peak above resident state "
+              f"{peak} B, of which parameter grads {gb} B ({peak - gb} B without them); "
+              f"launches {json.dumps(c)}; {ms:.1f} ms")
+    print(f"[planned] loss bitwise {torch.equal(l0, l1)}")
+    grads_ok = grads_agree("planned", [g1[k] for k in g0], list(g0.values()))
+    del g0, g1
+    check(torch.equal(l0, l1), "planned loss differs from vanilla")
+    check(grads_ok, "planned grads differ from vanilla beyond rtol 1e-3")
+    check(c1["flash_fwd"] - c0["flash_fwd"] == len(rec_flash),
+          "planned flash_fwd launches do not add up to the plan's recomputed flash nodes")
+    check(c1["flash_bwd_dq"] == c0["flash_bwd_dq"] == len(flash)
+          and c1["flash_bwd_dkv"] == c0["flash_bwd_dkv"] == len(flash),
+          "backward kernel launches differ between the planned and vanilla runs")
+    check(peak1 < peak0, "the planned run did not lower the measured peak")
+    for name in fa.KERNELS:
+        results[name]["planned_launches"] = c1[name]
+
+    # Both Trainers start from the same weights and batches, so their steps
+    # must agree as the planned and vanilla runs above do.
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    steps = {}
+    for tag, budget in (("unplanned", None), ("planned", lowered.report.budget)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(weights[k])
+        tr = train.Trainer(loss_fn, model, train.TrainConfig(
+            total_steps=1, log_every=0, plan_budget=budget), device=dev)
+        batches = iter(stream)
+        first = tr.run(batches)
+        misses = planner.cache.stats()["misses"]
+        tr.cfg = dataclasses.replace(tr.cfg, total_steps=2)
+        second = tr.run(batches)
+        new_misses = planner.cache.stats()["misses"] - misses
+        losses = first["losses"] + second["losses"]
+        norms = first["grad_norms"] + second["grad_norms"]
+        seconds = first["step_seconds"] + second["step_seconds"]
+        steps[tag] = (losses, norms)
+        print(f"[planned] Trainer {tag:9s}: losses {losses}, step seconds "
+              f"{[round(t, 4) for t in seconds]}; grad norms {norms}; "
+              f"plan-cache misses in step 2: {new_misses}")
+        check(tr.skipped == 0 and all(math.isfinite(x) for x in losses),
+              f"the {tag} Trainer skipped a step or gave a non-finite loss")
+        if budget is not None:
+            check(new_misses == 0 and len(tr.planned._memo) == 1,
+                  "the planned Trainer re-traced or re-planned in its second step")
+        del tr
+    del weights
+    (la, na), (lb, nb) = steps["unplanned"], steps["planned"]
+    worst = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(la + na, lb + nb))
+    print(f"[planned] Trainer planned vs unplanned: step-1 loss bitwise {la[0] == lb[0]}, "
+          f"all losses and grad norms bitwise {(la, na) == (lb, nb)}, "
+          f"worst relative error {worst:.3e}")
+    check(la[0] == lb[0], "the planned Trainer's first loss differs from the unplanned one")
+    check(worst <= 1e-3, "the planned Trainer's losses or grad norms differ beyond rtol 1e-3")
 
 
 def main() -> int:
@@ -614,6 +784,7 @@ def main() -> int:
         ("witness", lambda: phase_witness(state)),
         ("profile", lambda: phase_profile(state)),
         ("trade", lambda: phase_trade(state)),
+        ("planned", lambda: phase_planned(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -7,12 +7,13 @@ feasible budget, Chen's √n baseline, the discrete-event replay, and the
 content-addressed plan cache behind the ``Planner``.  These modules are
 numpy/stdlib only and are copies of the reference with imports re-pointed.
 
-Unlike ``repro/core/__init__.py``, this package exports no lowerings (the
-reference's import of ``.lowering`` is what pulls jax in); the torch
-lowerings and ``plan_function`` wait for ROADMAP.md module queue, item
-'Torch graph carrier and lowerings'.
+The torch half: ``fx_graph`` traces any torch function into the paper's
+graph with ``make_fx`` (one node per aten op), ``blockgraph`` carries a
+layer DAG, and ``lowering`` runs a plan on autograd behind
+``plan_function``.
 """
 
+from .blockgraph import Block, BlockGraph
 from .chen import articulation_points, candidate_split_points, chen_sqrt_n
 from .cost_model import (
     OpProfile,
@@ -38,6 +39,7 @@ from .dp import (
     solve,
     sweep,
 )
+from .fx_graph import FxGraph, trace
 from .graph import (
     Graph,
     Node,
@@ -49,6 +51,15 @@ from .graph import (
 )
 from .liveness import SimResult, simulate, transition_excess, vanilla_peak
 from .lower_sets import all_lower_sets, count_lower_sets, pruned_lower_sets
+from .lowering import (
+    InfeasibleBudgetError,
+    LoweredPlan,
+    PlannedFunction,
+    available_backends,
+    get_lowering,
+    plan_function,
+    register_lowering,
+)
 from .plan_cache import (
     CallableStore,
     PlanCache,
@@ -145,4 +156,16 @@ __all__ = [
     "load_or_profile",
     "measured_times",
     "calibrated_graph",
+    # torch carriers and lowerings
+    "Block",
+    "BlockGraph",
+    "FxGraph",
+    "trace",
+    "InfeasibleBudgetError",
+    "LoweredPlan",
+    "PlannedFunction",
+    "available_backends",
+    "get_lowering",
+    "plan_function",
+    "register_lowering",
 ]

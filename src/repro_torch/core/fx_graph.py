@@ -1,0 +1,163 @@
+"""Extract the paper's graph ``G = (V, E)`` from a torch function traced with
+``make_fx`` (port of ``repro/core/jaxpr_graph.py``; the aten graph takes the
+place of the jaxpr).
+
+The function is traced with ``make_fx(tracing_mode="fake")``: every tensor
+is a fake tensor with shape, dtype and device only, so tracing a model at
+full width allocates nothing on the card.  One graph node per aten op that
+allocates, ``M_v`` = the bytes of its outputs; an edge (v, w) when w reads
+an output of v.  Graph inputs (parameters, batch) are not nodes (§2).
+
+Rules, and where they differ from the reference:
+
+* ``getitem`` folds into its multi-output producer, whose ``M_v`` is the sum
+  of its outputs: one node per equation, as in the reference.
+* **Divergence.**  Aliasing views (``view``, ``_unsafe_view``, ``t``,
+  ``transpose``, ``permute``, ``expand``, ``unsqueeze``, ``slice``, …;
+  ``prims.ATEN_VIEW_OPS``) fold into the node of their base: they share its
+  storage, so storing one costs no bytes and recomputing one costs no work.
+  The reference keeps ``reshape``/``transpose`` as nodes.  A view of a graph
+  input is no node either.
+* Ops that allocate nothing (``prims.ATEN_NO_ALLOC``) are no nodes.
+* ``kind`` is the reference's primitive name where ``prims.ATEN_KINDS``
+  maps the op (``mm`` → ``dot_general``, ``sum`` → ``reduce_sum``, …), so a
+  torch twin of a JAX function has the same ``graph_digest``; other ops
+  keep their aten name.  The flash-attention custom op is one node of kind
+  ``flash_attention``.
+
+Cost models, as in the reference: ``"paper"`` (T_v = 10 for the matmul/conv
+family and the flash op, 1 otherwise) and ``"flops"`` (matmul 2·M·N·K,
+convolution 2·out·Cin·k, flash attention 4·B·H·Sq·Sk·D, halved when causal,
+elementwise = output elements).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import operator
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+from torch import fx
+from torch.fx.experimental.proxy_tensor import make_fx
+
+from .graph import Graph, Node
+from .prims import ATEN_HEAVY, ATEN_KINDS, ATEN_NO_ALLOC, ATEN_VIEW_OPS, FLASH_OP
+
+
+def op_name(target: Any) -> str:
+    """Schema name of an op: ``mm`` for ``aten::mm``, the qualified name for
+    other namespaces, the Python name for other callables."""
+    schema = getattr(target, "_schema", None)
+    if schema is None:
+        return getattr(target, "__name__", str(target))
+    name = schema.name
+    return name[len("aten::"):] if name.startswith("aten::") else name
+
+
+def _tensors(val: Any) -> List[torch.Tensor]:
+    return [t for t in pytree.tree_leaves(val) if isinstance(t, torch.Tensor)]
+
+
+def tensor_bytes(val: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(val))
+
+
+def node_flops(node: fx.Node) -> float:
+    """Analytic FLOPs of one aten op, from the fake values of the trace."""
+    name = op_name(node.target)
+    out = _tensors(node.meta.get("val"))
+    args = [a.meta.get("val") if isinstance(a, fx.Node) else a for a in node.args]
+    if name in ("mm", "bmm", "addmm"):
+        lhs = args[1] if name == "addmm" else args[0]
+        return float(2 * out[0].numel() * lhs.shape[-1])
+    if name == "convolution":
+        w = args[1]
+        return float(2 * out[0].numel() * (w.numel() // w.shape[0]))
+    if name == FLASH_OP:
+        q, k, causal = args[0], args[1], args[3]
+        B, Sq, H, D = q.shape
+        flops = 4 * B * H * Sq * k.shape[1] * D
+        return float(flops // 2 if causal else flops)
+    return float(max(1, sum(t.numel() for t in out)))
+
+
+@dataclasses.dataclass
+class FxGraph:
+    """The extracted graph plus the mapping back to the fx trace."""
+
+    graph: Graph
+    nodes: List[fx.Node]  # graph node idx → the fx node that computes it
+    gm: fx.GraphModule
+    #: every fx node → the graph node it belongs to (folded views and
+    #: getitems map to their base's node; inputs and views of inputs to None)
+    owner: Dict[fx.Node, Optional[int]]
+
+    @property
+    def output(self) -> fx.Node:
+        """The fx node the traced function returns (a scalar for planning)."""
+        out = next(n for n in self.gm.graph.nodes if n.op == "output")
+        return pytree.tree_leaves(out.args[0])[0]
+
+    def run_node(self, node: fx.Node, read: Callable[[fx.Node], Any]) -> Any:
+        """Execute one fx node, reading its operands with ``read``."""
+        if node.op == "get_attr":
+            return operator.attrgetter(node.target)(self.gm)
+        args, kwargs = fx.node.map_arg((node.args, node.kwargs), read)
+        return node.target(*args, **kwargs)
+
+
+def is_view(node: fx.Node) -> bool:
+    """Whether an fx node aliases its first operand (a view op or getitem)."""
+    return node.target is operator.getitem or op_name(node.target) in ATEN_VIEW_OPS
+
+
+def from_graph_module(gm: fx.GraphModule, cost_model: str = "paper") -> FxGraph:
+    """Build the paper's G=(V,E) from a make_fx GraphModule."""
+    if cost_model not in ("paper", "flops"):
+        raise ValueError(f"unknown cost_model {cost_model!r}")
+    owner: Dict[fx.Node, Optional[int]] = {}
+    nodes: List[Node] = []
+    producers: List[fx.Node] = []
+    edges: List[Tuple[int, int]] = []
+    for n in gm.graph.nodes:
+        if n.op in ("placeholder", "get_attr"):
+            owner[n] = None
+            continue
+        if n.op != "call_function":
+            continue
+        if is_view(n):
+            owner[n] = owner[n.args[0]]
+            continue
+        name = op_name(n.target)
+        if name in ATEN_NO_ALLOC:
+            owner[n] = None
+            continue
+        idx = len(nodes)
+        mem = tensor_bytes(n.meta.get("val")) or 1
+        if cost_model == "paper":
+            t = 10.0 if name in ATEN_HEAVY else 1.0
+        else:
+            t = node_flops(n)
+        kind = ATEN_KINDS.get(name, name)
+        nodes.append(Node(idx=idx, name=f"{idx}:{kind}", time=t, memory=float(mem),
+                          kind=kind))
+        producers.append(n)
+        owner[n] = idx
+        for a in n.all_input_nodes:
+            src = owner.get(a)
+            if src is not None:
+                edges.append((src, idx))
+    return FxGraph(graph=Graph(nodes, edges), nodes=producers, gm=gm, owner=owner)
+
+
+def trace_module(fn: Callable[..., Any], *example_args: Any) -> fx.GraphModule:
+    """``make_fx`` in fake mode: shapes, dtypes and devices only."""
+    return make_fx(fn, tracing_mode="fake")(*example_args)
+
+
+def trace(fn: Callable[..., Any], *example_args: Any,
+          cost_model: str = "paper") -> FxGraph:
+    """Trace ``fn`` on example tensors (or pytrees of them)."""
+    return from_graph_module(trace_module(fn, *example_args), cost_model=cost_model)

@@ -1,0 +1,195 @@
+"""``plan_function`` — the one-call front door of the planning pipeline
+(port of ``repro/core/lowering/front_door.py``).
+
+    planned = repro_torch.plan_function(loss_fn, budget=2 * 2**30)
+    loss, grads = planned(params, x)          # value-and-grad twin
+
+Any torch function of tensors (or a ``BlockGraph``) goes through the same
+pipeline:
+
+    carrier (make_fx trace / blocks) → core.Graph → Planner (plan cache +
+    budget sweep) → a registered Lowering backend → runnable value_and_grad
+
+Tracing and planning happen lazily on the first call and are memoized per
+argument structure, shapes, dtypes and devices; re-creating the planned
+function re-plans through the content-addressed plan cache instead of
+re-running the DP.  The twin runs on the device of its arguments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import torch
+import torch.utils._pytree as pytree
+
+from ..schedule import ExecutionPlan
+from .base import InfeasibleBudgetError, not_ported, resolve_backend
+from .carriers import BlockGraphCarrier, TracedCarrier, abstract_signature, reject_mesh
+
+
+@dataclasses.dataclass
+class LoweredPlan:
+    """One (argument-signature → plan → backend) lowering of a function."""
+
+    carrier: Any
+    report: Any  # core.planner.PlanReport
+    plan: ExecutionPlan
+    backend: str
+    run: Callable[..., Any]
+
+
+class PlannedFunction:
+    """Lazy value-and-grad twin of a function under a memory budget.
+
+    Calling it traces and plans on first use (memoized per argument
+    signature) and then runs the lowered form.  ``lowered_for(*args)``
+    exposes the underlying :class:`LoweredPlan` (plan, PlanReport, backend).
+    """
+
+    def __init__(
+        self,
+        fn: Any,
+        budget: Optional[float],
+        backend: str,
+        method: str,
+        objective: str,
+        cost_model: str,
+        argnums: Union[int, Tuple[int, ...]],
+        loss_fn: Optional[Callable[..., Any]],
+        planner: Optional[Any],
+        track_live: bool,
+    ):
+        self.fn = fn
+        self.budget = budget
+        self.backend = backend
+        self.method = method
+        self.objective = objective
+        self.cost_model = cost_model
+        self.argnums = argnums
+        self.loss_fn = loss_fn
+        self.planner = planner
+        self.track_live = track_live
+        self._memo: Dict[Tuple, LoweredPlan] = {}
+
+    def _carrier_for(self, args) -> Any:
+        fn = self.fn
+        # BlockGraph carrier: duck-typed to avoid importing blockgraph here
+        if hasattr(fn, "blocks") and hasattr(fn, "by_name"):
+            if self.loss_fn is None:
+                raise ValueError("plan_function over a BlockGraph needs loss_fn=")
+            if len(args) != 2:
+                raise TypeError("BlockGraph planned functions take (params, inputs)")
+            # only shapes matter for planning — don't pin the first call's
+            # concrete weights in the memo for the function's lifetime
+            meta = pytree.tree_map(
+                lambda t: t.to("meta") if isinstance(t, torch.Tensor) else t, args)
+            return BlockGraphCarrier(bg=fn, loss_fn=self.loss_fn, params=meta[0],
+                                     inputs=meta[1], cost_model=self.cost_model)
+        return TracedCarrier.trace(fn, args, argnums=self.argnums,
+                                   cost_model=self.cost_model)
+
+    def lowered_for(self, *args) -> LoweredPlan:
+        """Trace + plan + lower for this argument signature (memoized)."""
+        key = abstract_signature(args)
+        hit = self._memo.get(key)
+        if hit is not None:
+            return hit
+        from ..planner import get_default_planner
+
+        carrier = self._carrier_for(args)
+        g = carrier.to_graph()
+        pl = self.planner or get_default_planner()
+        report = pl.plan(g, self.budget, self.method, self.objective)
+        if report.plan is None:
+            hint = ""
+            if self.method in ("exact_dp", "approx_dp"):
+                needed = pl.min_feasible_budget(g, self.method)
+                hint = f"; minimal feasible budget is {needed:g}"
+            raise InfeasibleBudgetError(
+                f"no feasible strategy for budget {self.budget!r} "
+                f"({self.method}/{self.objective}){hint}"
+            )
+        backend = resolve_backend(self.backend, carrier)
+        run = backend.lower(carrier, report.plan, track_live=self.track_live)
+        lowered = LoweredPlan(carrier=carrier, report=report, plan=report.plan,
+                              backend=backend.name, run=run)
+        self._memo[key] = lowered
+        return lowered
+
+    def __call__(self, *args):
+        return self.lowered_for(*args).run(*args)
+
+
+def plan_function(
+    fn: Any,
+    budget: Optional[float] = None,
+    *,
+    backend: str = "auto",
+    method: str = "approx_dp",
+    objective: str = "time_centric",
+    cost_model: str = "paper",
+    argnums: Union[int, Tuple[int, ...]] = 0,
+    loss_fn: Optional[Callable[..., Any]] = None,
+    planner: Optional[Any] = None,
+    track_live: bool = False,
+    mesh: Any = None,
+    in_shardings: Any = None,
+    analyze_effects: bool = False,
+    verify: bool = False,
+    verify_hlo: bool = False,
+    donate: bool = False,
+    strategies: Any = None,
+) -> PlannedFunction:
+    """Plan ``fn``'s recomputation under ``budget`` bytes; return its
+    value-and-grad twin.
+
+    Parameters
+    ----------
+    fn:
+        Any scalar-output torch function of tensors (and pytrees of them) —
+        traced on first call by ``core.fx_graph`` (``make_fx`` in fake mode,
+        one node per aten op) — or a ``core.blockgraph.BlockGraph`` (then
+        ``loss_fn`` is required and calls take ``(params, inputs)``).
+    budget:
+        Memory budget in bytes for the analytic peak (the liveness-tight
+        refinement of eq. 2).  ``None`` reproduces the paper's §5.1
+        protocol: the exact minimal feasible budget.  An infeasible budget
+        raises :class:`InfeasibleBudgetError` naming the minimal one.
+    backend:
+        ``"auto"`` (``"fx"`` for traced functions, ``"segment"`` for
+        BlockGraphs), or any registered lowering: ``"interpreter"``,
+        ``"segment"``, ``"fx"``.  The reference's ``"policy"`` backend is
+        not ported (ROADMAP.md).
+    method / objective:
+        Planner knobs (§4): ``"approx_dp"``/``"exact_dp"`` ×
+        ``"time_centric"``/``"memory_centric"``/``"wallclock"``.
+    argnums:
+        Which positional args to differentiate (traced carrier only).
+    planner:
+        A ``core.planner.Planner``; defaults to the process-wide one, so
+        repeated plans hit the content-addressed plan cache.
+    track_live:
+        Interpreter backend only: calls return ``(value, grads, trace)``
+        where ``trace`` is the live-intermediate-bytes audit trail.
+
+    ``mesh``/``in_shardings`` (ROADMAP.md item 'Multi-device'),
+    ``analyze_effects``/``verify``/``verify_hlo`` and
+    ``cost_model="compiled"`` (item 'Analysis'), ``donate`` and
+    offload/quantize ``strategies`` (item 'Strategy realization +
+    donation') raise ``NotImplementedError``.
+    """
+    reject_mesh(mesh, in_shardings)
+    if analyze_effects or verify or verify_hlo or cost_model == "compiled":
+        raise not_ported("analyze_effects / verify / verify_hlo / cost_model='compiled'",
+                         "Analysis")
+    if donate or strategies is not None:
+        raise not_ported("donate / strategies", "Strategy realization + donation")
+    if track_live and backend == "auto":
+        backend = "interpreter"
+    return PlannedFunction(
+        fn=fn, budget=budget, backend=backend, method=method,
+        objective=objective, cost_model=cost_model, argnums=argnums,
+        loss_fn=loss_fn, planner=planner, track_live=track_live,
+    )

@@ -1,0 +1,346 @@
+"""Paper-faithful interpreter backend (§3) for both graph carriers (port of
+``repro/core/lowering/interpreter.py``).
+
+Interprets the canonical strategy step by step: the forward runs under
+``torch.no_grad`` and keeps only the cached set U_k (and the loss); the
+backward walks the segments last to first, recomputes each V_i \\ U_k from
+detached copies of the cached values it reads, and pulls the cotangents
+back through the segment with one ``torch.autograd.grad``.  Gradients are
+those of plain autograd, and the per-step live set can be audited against
+the plan's analytic peak.
+
+One engine serves both granularities: a *key* is a block name
+(``BlockGraph``) or an fx node (traced function); a segment evaluates its
+keys in order from the keys it reads outside itself.
+
+``track_live=True`` appends a ``[(tag, live_bytes), ...]`` trace counting
+the storages of the *intermediate forward values* held at each step (graph
+inputs, parameters and views of them excluded, as in §2), which the tests
+hold within the plan's ``peak_memory``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+
+from ..fx_graph import FxGraph
+from ..schedule import ExecutionPlan
+from .base import (
+    Lowering,
+    blockgraph_value_and_grad,
+    grads_like,
+    register_lowering,
+    reject_strategies,
+)
+from .carriers import BlockGraphCarrier, TracedCarrier
+
+
+@dataclasses.dataclass
+class SegmentProgram:
+    """The static structure of one plan segment over a carrier's keys."""
+
+    index: int
+    steps: List[Any]  # keys evaluated in order (helpers first, then owned)
+    owned: List[Any]  # keys whose values belong to this segment's nodes
+    ext: List[Any]  # keys read from outside the segment
+    outs: List[Any]  # owned keys read by later segments, or final
+
+
+def _tensor_leaves(v: Any) -> List[torch.Tensor]:
+    return [t for t in pytree.tree_leaves(v) if isinstance(t, torch.Tensor)]
+
+
+def _as_leaf(v: Any, grad: bool) -> Any:
+    """Detached copy of a value (pytree), floating tensors requiring grad."""
+    return pytree.tree_map(
+        lambda t: t.detach().requires_grad_(grad and t.is_floating_point())
+        if isinstance(t, torch.Tensor) else t, v)
+
+
+def _link(progs: List[SegmentProgram], is_final: Callable[[Any], bool]) -> List[SegmentProgram]:
+    """Fill each segment's ``outs``: its keys that a later segment reads, or
+    that are final."""
+    readers: Dict[Any, Set[int]] = {}
+    for p in progs:
+        for k in p.ext:
+            readers.setdefault(k, set()).add(p.index)
+    for p in progs:
+        p.outs = [k for k in p.owned
+                  if is_final(k) or any(j > p.index for j in readers.get(k, ()))]
+    return progs
+
+
+def traced_programs(fxg: FxGraph, plan: ExecutionPlan) -> List[SegmentProgram]:
+    """Per-segment fx nodes of a traced function.
+
+    A segment's steps are the fx nodes its graph nodes own (with their
+    folded views and getitems), preceded by the nodes it needs that belong
+    to no graph node (views of inputs, constants), which every segment that
+    reads them re-evaluates from the inputs.
+    """
+    owner, out_node = fxg.owner, fxg.output
+    seg_of = plan.segment_of()
+    order = [n for n in fxg.gm.graph.nodes if n.op in ("call_function", "get_attr")]
+    owned: List[List[Any]] = [[] for _ in plan.segments]
+    for n in order:
+        if owner[n] is not None:
+            owned[seg_of[owner[n]]].append(n)
+    progs = []
+    for seg, nodes in zip(plan.segments, owned):
+        own = set(nodes)
+        helpers: Set[Any] = set()
+        stack = [a for n in nodes for a in n.all_input_nodes]
+        while stack:  # nodes of no graph node that this segment needs
+            a = stack.pop()
+            if a.op != "placeholder" and owner.get(a) is None and a not in helpers:
+                helpers.add(a)
+                stack.extend(a.all_input_nodes)
+        steps = [n for n in order if n in helpers] + nodes
+        inside = own | helpers
+        ext = list(dict.fromkeys(a for n in steps for a in n.all_input_nodes
+                                 if a not in inside))
+        progs.append(SegmentProgram(seg.index, steps, nodes, ext, []))
+    return _link(progs, lambda n: n is out_node)
+
+
+def blockgraph_programs(bg, plan: ExecutionPlan) -> List[SegmentProgram]:
+    """Per-segment blocks of a BlockGraph; a block also reads its params,
+    keyed ``("param", name)``."""
+    progs = []
+    for seg in plan.segments:
+        names = [bg.blocks[v].name for v in seg.nodes]
+        own = set(names)
+        ext = list(dict.fromkeys(
+            k for name in names
+            for k in (("param", name), *bg.by_name[name].inputs) if k not in own))
+        progs.append(SegmentProgram(seg.index, names, names, ext, []))
+    return _link(progs, lambda name: name in bg.outputs)
+
+
+def run_segment(prog: SegmentProgram, evaluate: Callable[[Any, Callable], Any],
+                read: Callable[[Any], Any],
+                have: Optional[Dict[Any, Any]] = None) -> Dict[Any, Any]:
+    """Values of every step of a segment, reading outside keys with ``read``;
+    steps whose value is in ``have`` (the caches) are taken from it, not
+    evaluated again."""
+    local: Dict[Any, Any] = {}
+    have = have or {}
+
+    def get(k):
+        return local[k] if k in local else read(k)
+
+    for k in prog.steps:
+        local[k] = have[k] if k in have else evaluate(k, get)
+    return local
+
+
+def interpret(
+    progs: Sequence[SegmentProgram],
+    evaluate: Callable[[Any, Callable], Any],
+    reads: Callable[[Any], Sequence[Any]],
+    inputs: Dict[Any, Any],
+    diff: Set[Any],
+    keep: Set[Any],
+    final: Sequence[Any],
+    final_fn: Callable[..., torch.Tensor],
+    track_live: bool = False,
+) -> Tuple[torch.Tensor, Dict[Any, List[Optional[torch.Tensor]]], List[Tuple[str, int]]]:
+    """The canonical strategy over segment programs.
+
+    ``evaluate(key, get)`` computes a key's value from the values of
+    ``reads(key)``; ``inputs`` are the graph inputs and parameters by key,
+    ``diff`` the keys to differentiate, ``keep`` the keys of cached values,
+    ``final`` the keys ``final_fn`` turns into the loss.  Returns (loss,
+    grads of ``diff`` keys as lists aligned with their tensor leaves, live
+    trace).
+
+    The backward recomputes a segment, then pulls cotangents back key by
+    key in reverse order, each through its own ``torch.autograd.grad``:
+    a value read by several keys sums their cotangents in the order plain
+    autograd does (latest reader first), so gradients are bitwise equal.
+    """
+    live: List[Tuple[str, int]] = []
+    input_storages = {t.untyped_storage().data_ptr()
+                      for v in inputs.values() for t in _tensor_leaves(v)}
+
+    def snapshot(tag: str, *stores: Dict[Any, Any]) -> None:
+        if not track_live:
+            return
+        seen = set(input_storages)
+        nbytes = 0
+        for store in stores:
+            for v in store.values():
+                for t in _tensor_leaves(v):
+                    s = t.untyped_storage()
+                    if s.data_ptr() not in seen:
+                        seen.add(s.data_ptr())
+                        nbytes += s.nbytes()
+        live.append((tag, nbytes))
+
+    env: Dict[Any, Any] = {}
+
+    def read(k):
+        return env[k] if k in env else inputs[k]
+
+    # ---------------- forward ----------------
+    with torch.no_grad():
+        for p in progs:
+            local = run_segment(p, evaluate, read)
+            for k in p.owned:
+                if k in keep or k in final:
+                    env[k] = local[k]
+            snapshot(f"fwd_seg{p.index}", env)
+
+    ct: Dict[Any, List[Optional[torch.Tensor]]] = {}
+    grads: Dict[Any, List[Optional[torch.Tensor]]] = {}
+
+    def pull(outs: Any, cts: Sequence[Optional[torch.Tensor]], leaves: Dict[Any, Any]):
+        """Add d(outs)·cts w.r.t. each leaf value to its key's cotangent."""
+        pairs = [(t, c) for t, c in zip(_tensor_leaves(outs), cts)
+                 if c is not None and t.requires_grad]
+        wrt = [(k, i, t) for k, v in leaves.items()
+               for i, t in enumerate(_tensor_leaves(v)) if t.requires_grad]
+        if not pairs or not wrt:
+            return
+        gs = torch.autograd.grad([t for t, _ in pairs], [t for _, _, t in wrt],
+                                 [c for _, c in pairs], allow_unused=True)
+        for (k, i, t), g in zip(wrt, gs):
+            if g is None:
+                continue
+            dest = grads if k in inputs else ct
+            acc = dest.setdefault(k, [None] * len(_tensor_leaves(leaves[k])))
+            acc[i] = g if acc[i] is None else acc[i] + g
+
+    leaves = {k: _as_leaf(env[k], True) for k in final}
+    with torch.enable_grad():
+        loss = final_fn(*leaves.values())
+    pull(loss, [torch.ones_like(loss)], leaves)
+
+    # ---------------- backward ----------------
+    for p in reversed(progs):
+        with torch.no_grad():  # recompute V_i \ U_k from the caches
+            local = run_segment(p, evaluate, read, have=env)
+        snapshot(f"bwd_recompute_seg{p.index}", env, local)
+        for k in reversed(p.steps):
+            cts = ct.pop(k, None)
+            if cts is None:
+                continue
+            leaves = {d: _as_leaf(local[d] if d in local else read(d),
+                                  d in diff or d not in inputs)
+                      for d in dict.fromkeys(reads(k))}
+            with torch.enable_grad():
+                out = evaluate(k, leaves.__getitem__)
+            pull(out, cts, leaves)
+        del local
+        for k in p.owned:  # canonical rule: this segment's values are dead
+            env.pop(k, None)
+            ct.pop(k, None)
+        snapshot(f"bwd_done_seg{p.index}", env)
+    return loss.detach(), grads, live
+
+
+# ---------------------------------------------------------------------------
+# Carriers
+# ---------------------------------------------------------------------------
+
+
+def planned_value_and_grad(bg, plan: ExecutionPlan,
+                           loss_fn: Callable[..., torch.Tensor],
+                           track_live: bool = False):
+    """f(params, inputs) -> (loss, param grads[, live_trace]) over a
+    BlockGraph, interpreting the canonical strategy block by block."""
+    progs = blockgraph_programs(bg, plan)
+    keep = {bg.blocks[v].name for v in plan.cached}
+
+    def reads(name):
+        return [("param", name), *bg.by_name[name].inputs]
+
+    def evaluate(name, get):
+        p, *xs = reads(name)
+        return bg.by_name[name].apply(get(p), *[get(i) for i in xs])
+
+    def run(params: Dict[str, Any], inputs: Dict[str, Any]):
+        vals = {("param", b.name): params[b.name] for b in bg.blocks}
+        vals.update(inputs)
+        loss, grads, live = interpret(
+            progs, evaluate, reads, vals, diff={("param", b.name) for b in bg.blocks},
+            keep=keep, final=list(bg.outputs), final_fn=loss_fn, track_live=track_live)
+        param_grads = {}
+        for b in bg.blocks:
+            leaves, spec = pytree.tree_flatten(params[b.name])
+            got = grads.get(("param", b.name), [None] * len(leaves))
+            param_grads[b.name] = pytree.tree_unflatten(
+                [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, got)], spec)
+        return (loss, param_grads, live) if track_live else (loss, param_grads)
+
+    return run
+
+
+def vanilla_value_and_grad(bg, loss_fn: Callable[..., torch.Tensor]):
+    """Reference: plain autograd over the vanilla executor."""
+    return blockgraph_value_and_grad(bg.apply, loss_fn)
+
+
+def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
+                                  track_live: bool = False):
+    """Interpret the canonical strategy over a traced function's fx graph;
+    ``f(*args) -> (value, grads[, live_trace])`` with grads w.r.t.
+    ``carrier.argnums``."""
+    fxg = carrier.fx
+    progs = traced_programs(fxg, plan)
+    keep = {n for n, v in fxg.owner.items() if v is not None and v in plan.cached}
+    placeholders = [n for n in fxg.gm.graph.nodes if n.op == "placeholder"]
+
+    def run(*args):
+        flat = carrier.flatten_args(args)
+        inputs = dict(zip(placeholders, flat))
+        diff = {n for n, t in inputs.items() if t.requires_grad}
+        loss, grads, live = interpret(
+            progs, fxg.run_node, lambda n: n.all_input_nodes, inputs, diff, keep,
+            [fxg.output], lambda x: x, track_live=track_live)
+        flat_grads = [grads.get(n, [None])[0] for n in inputs]
+        flat_grads = [torch.zeros_like(t) if g is None else g
+                      for t, g in zip(flat, flat_grads)]
+        out = (loss, carrier.grads_out(args, flat_grads))
+        return out + (live,) if track_live else out
+
+    return run
+
+
+def vanilla_traced_value_and_grad(carrier: TracedCarrier):
+    """Reference for a traced carrier: plain autograd through ``fn``."""
+
+    def run(*args):
+        flat = carrier.flatten_args(args)
+        loss = carrier.fn(*pytree.tree_unflatten(flat, carrier.in_spec))
+        return loss.detach(), carrier.grads_out(args, grads_like(loss, flat))
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Registry glue
+# ---------------------------------------------------------------------------
+
+
+class InterpreterLowering(Lowering):
+    """§3's canonical strategy, interpreted (validation / audit backend)."""
+
+    name = "interpreter"
+
+    def supports(self, carrier) -> bool:
+        return isinstance(carrier, (BlockGraphCarrier, TracedCarrier))
+
+    def lower(self, carrier, plan: ExecutionPlan, track_live: bool = False):
+        reject_strategies(plan)
+        if isinstance(carrier, BlockGraphCarrier):
+            return planned_value_and_grad(carrier.bg, plan, carrier.loss_fn,
+                                          track_live=track_live)
+        return traced_planned_value_and_grad(carrier, plan, track_live=track_live)
+
+
+register_lowering(InterpreterLowering())

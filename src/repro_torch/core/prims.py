@@ -116,3 +116,90 @@ MATMUL_KINDS = frozenset({
 
 #: Node kinds priced at the attention kernel's achieved rate.
 ATTENTION_KINDS = frozenset({"attention", "flash_attention", "custom_vjp_call"})
+
+# ---------------------------------------------------------------------------
+# aten tables (``core.fx_graph``: one graph node per aten op of a make_fx
+# trace).  Ops are named by their schema name without the ``aten::``
+# namespace; ops of other namespaces keep theirs.
+# ---------------------------------------------------------------------------
+
+#: The flash-attention custom op (``kernels.ops``).
+FLASH_OP = "repro_torch::flash_attention"
+
+#: aten ops heavy under the paper's 10/1 model: the matmul/conv family and
+#: the flash-attention op.
+ATEN_HEAVY = frozenset({"mm", "bmm", "addmm", "convolution", FLASH_OP})
+
+#: aten ops whose outputs alias their first input's storage: they fold into
+#: the node of their base (no bytes to store, no work to recompute).
+ATEN_VIEW_OPS = frozenset({
+    "view",
+    "_unsafe_view",
+    "_reshape_alias",
+    "t",
+    "transpose",
+    "permute",
+    "expand",
+    "unsqueeze",
+    "squeeze",
+    "slice",
+    "select",
+    "narrow",
+    "diagonal",
+    "split",
+    "split_with_sizes",
+    "unbind",
+    "chunk",
+    "alias",
+    "detach",
+    "as_strided",
+    "unfold",
+    "view_as_real",
+    "view_as_complex",
+    "lift_fresh",
+})
+
+#: aten ops that allocate nothing (shape queries and assertions).
+ATEN_NO_ALLOC = frozenset({
+    "sym_size",
+    "sym_stride",
+    "sym_numel",
+    "sym_storage_offset",
+    "_assert_async",
+    "_assert_scalar",
+    "_assert_tensor_metadata",
+})
+
+#: aten op → the reference's ``kind`` (its jaxpr primitive name), so that a
+#: torch twin of a JAX function hashes to the same ``graph_digest`` and
+#: hits the same plans.  Ops not listed keep their own name.
+ATEN_KINDS = {
+    "mm": "dot_general",
+    "bmm": "dot_general",
+    "addmm": "dot_general",
+    "convolution": "conv_general_dilated",
+    FLASH_OP: "flash_attention",
+    "tanh": "tanh",
+    "mul": "mul",
+    "add": "add",
+    "sub": "sub",
+    "div": "div",
+    "neg": "neg",
+    "exp": "exp",
+    "log": "log",
+    "sin": "sin",
+    "cos": "cos",
+    "abs": "abs",
+    "sqrt": "sqrt",
+    "rsqrt": "rsqrt",
+    "sigmoid": "logistic",
+    "maximum": "max",
+    "minimum": "min",
+    "sum": "reduce_sum",
+    "amax": "reduce_max",
+    "amin": "reduce_min",
+    "where": "select_n",
+    "cat": "concatenate",
+    "clone": "copy",
+    "_to_copy": "convert_element_type",
+}

@@ -29,7 +29,7 @@ import math
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -331,14 +331,19 @@ def flash_attention_bwd(
     lse: torch.Tensor,
     do: torch.Tensor,
     causal: bool = True,
+    dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Recompute backward: (dq, dk, dv), dk/dv on the KV heads.
 
-    ``delta = rowsum(do∘out)`` is a torch op, as in the reference.
+    ``delta = rowsum(do∘out)`` is a torch op, as in the reference.  A
+    cotangent of lse, ``dlse`` (B, H, Sq), enters as ``delta − dlse``: with
+    ``ds = p·(dp − delta)``, that adds ``dlse·p`` to ds, lse's derivative.
     """
     if out.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} does not match q {tuple(q.shape)}")
     delta = ref.row_delta(out, do)
+    if dlse is not None:
+        delta = (delta - dlse).contiguous()
     dq = flash_attention_bwd_dq(q, k, v, lse, delta, do, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
     return dq, dk, dv

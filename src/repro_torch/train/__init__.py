@@ -1,3 +1,3 @@
-from .loop import TrainConfig, Trainer
+from .loop import TrainConfig, Trainer, functional_loss
 
-__all__ = ["TrainConfig", "Trainer"]
+__all__ = ["TrainConfig", "Trainer", "functional_loss"]

@@ -13,13 +13,18 @@ Ported responsibilities:
   ``on_straggler``;
 * **plan cache** — ``plan_cache_dir`` attaches the on-disk recomputation-plan
   store (core.plan_cache), so a restarted job recovers its remat plan as a
-  lookup instead of a re-solve.
+  lookup instead of a re-solve;
+* **planned steps** — with ``plan_budget`` the step's loss and gradients
+  come from ``repro_torch.plan_function`` applied to the loss over
+  ``torch.func.functional_call`` of the model: traced with ``make_fx``,
+  planned under the budget and lowered by the default backend (``"fx"``),
+  once per batch signature (later steps neither re-trace nor re-plan).
 
 The reference jits a step that donates a private copy of the params; the
 port trains the given module in place (a copy would double 11 GB of f32
 masters at stablelm-3b width).  Checkpoint/restart (``ckpt_dir``), int8
-gradient compression (``compress_grads``), planned steps (``plan_budget``)
-and ``remesh`` raise ``NotImplementedError`` naming their ROADMAP.md item.
+gradient compression (``compress_grads``) and ``remesh`` raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -54,10 +59,38 @@ class TrainConfig:
     # On-disk recomputation-plan cache (core.plan_cache); None keeps the
     # cache in memory only.
     plan_cache_dir: Optional[str] = None
+    # Activation-byte budget of the DP recomputation plan: when set, the
+    # step's value and grads are ``plan_function(loss, plan_budget)``.  None
+    # keeps plain autograd (losses whose remat the launcher already planned
+    # through segment_sizes stay on that path).
     plan_budget: Optional[float] = None
     optimizer: adamw.AdamWConfig = dataclasses.field(
         default_factory=adamw.AdamWConfig
     )
+
+
+class _LossModule(nn.Module):
+    def __init__(self, loss_fn, model: nn.Module):
+        super().__init__()
+        self.loss_fn = loss_fn
+        self.model = model
+
+    def forward(self, batch):
+        return self.loss_fn(self.model, batch)
+
+
+def functional_loss(loss_fn, model: nn.Module):
+    """``loss_fn(model, batch)`` as a pure ``fn(params, batch)`` over
+    ``torch.func.functional_call``, and the model's trainable parameters
+    as the dict ``fn`` reads, keyed ``"model." + name``.  The dict holds the
+    parameters themselves, so an in-place update shows through it."""
+    holder = _LossModule(loss_fn, model)
+
+    def fn(params, batch):
+        return torch.func.functional_call(holder, params, (batch,))
+
+    params = {"model." + n: p for n, p in model.named_parameters() if p.requires_grad}
+    return fn, params
 
 
 class Trainer:
@@ -72,9 +105,6 @@ class Trainer:
             raise _not_ported("ckpt_dir (checkpoint/restart)", "Checkpointing")
         if cfg.compress_grads:
             raise _not_ported("compress_grads", "Multi-device")
-        if cfg.plan_budget is not None:
-            raise _not_ported("plan_budget (plan_function steps)",
-                              "Torch graph carrier and lowerings")
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.model = model
@@ -87,6 +117,12 @@ class Trainer:
         self.params = [p for _, p in named]
         self.decay = [reference_ndim(n, p) >= 2 for n, p in named]
         self.opt_state = adamw.init(self.params)
+        self.planned = None
+        if cfg.plan_budget is not None:
+            from repro_torch.core.lowering import plan_function
+
+            step_loss, self._by_key = functional_loss(loss_fn, model)
+            self.planned = plan_function(step_loss, cfg.plan_budget)
         self.step = 0
         self.skipped = 0
         self.straggler_steps = 0
@@ -97,8 +133,12 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """One step; returns loss, grad_norm, lr (floats) and ok (bool)."""
-        loss = self.loss_fn(self.model, batch)
-        grads = torch.autograd.grad(loss, self.params)
+        if self.planned is None:
+            loss = self.loss_fn(self.model, batch)
+            grads = torch.autograd.grad(loss, self.params)
+        else:
+            loss, by_key = self.planned(self._by_key, batch)
+            grads = [by_key[k] for k in self._by_key]
         gnorm = adamw.global_norm(grads)
         loss_f, gnorm_f = float(loss.detach()), float(gnorm)
         # NaN guard: skip the update when loss/grad-norm is non-finite.

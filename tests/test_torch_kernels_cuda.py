@@ -181,3 +181,57 @@ def test_cuda_reduced_launcher_trains():
                 "--seq", "64"])
     assert out["step"] == 3 and np.isfinite(out["final_loss"])
     assert all(fa.LAUNCHES[name] > 0 for name in fa.KERNELS), fa.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_cuda_planned_attention_relaunches_the_forward_kernel():
+    """``plan_function`` on a small bf16 attention stack on the card, at the
+    exact minimal budget: the ``"fx"`` lowering gives plain autograd's loss
+    and grads, each flash node the plan recomputes launches ``flash_fwd``
+    once more, and the backward kernels launch once per node as in vanilla."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    core = importlib.import_module("repro_torch.core")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    B, S, H, KV, D, DM = 2, 128, 4, 2, 16, 64
+
+    def loss(layers, x):
+        h = x
+        for w in layers:
+            q = (h @ w["wq"]).reshape(B, S, H, D)
+            k = (h @ w["wk"]).reshape(B, S, KV, D)
+            v = (h @ w["wv"]).reshape(B, S, KV, D)
+            ctx = ops.flash_attention(q, k, v, causal=True)
+            h = torch.tanh(ctx.reshape(B, S, H * D) @ w["wo"]) + h
+        return h.float().square().sum() / (B * S)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = (("wq", (DM, H * D)), ("wk", (DM, KV * D)), ("wv", (DM, KV * D)),
+              ("wo", (H * D, DM)))
+    layers = [{n: (torch.randn(s, device="cuda", generator=g) * 0.2).bfloat16()
+               for n, s in shapes} for _ in range(3)]
+    x = torch.randn(B, S, DM, device="cuda", generator=g).bfloat16()
+    carrier = lowering.TracedCarrier.trace(loss, (layers, x))
+    flash = {nd.idx for nd in carrier.to_graph().nodes if nd.kind == "flash_attention"}
+    planned = lowering.plan_function(loss, planner=core.Planner(cache=core.PlanCache()))
+    plan = planned.lowered_for(layers, x).plan
+    recomputed = flash & set().union(*(s.recompute for s in plan.segments))
+    assert len(flash) == 3 and recomputed
+
+    def run(fn):
+        fa.reset_launch_counts()
+        out = fn(layers, x)
+        torch.cuda.synchronize()
+        return out, dict(fa.LAUNCHES)
+
+    planned(layers, x)  # warm-up
+    (l0, g0), c0 = run(lowering.vanilla_traced_value_and_grad(carrier))
+    (l1, g1), c1 = run(planned)
+    assert torch.equal(l0, l1)
+    for a, b in zip(g1, g0):
+        for name in a:
+            torch.testing.assert_close(a[name], b[name], rtol=1e-3, atol=0)
+    assert c1["flash_fwd"] - c0["flash_fwd"] == len(recomputed)
+    assert c1["flash_bwd_dq"] == c0["flash_bwd_dq"] == len(flash)
+    assert c1["flash_bwd_dkv"] == c0["flash_bwd_dkv"] == len(flash)

@@ -174,7 +174,7 @@ def test_nan_guard_skips_the_step():
 
 def test_trainer_raises_for_what_is_not_ported():
     _, _, _, plm = _small()
-    for kw in (dict(ckpt_dir="ckpt"), dict(compress_grads=True), dict(plan_budget=1e9)):
+    for kw in (dict(ckpt_dir="ckpt"), dict(compress_grads=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Trainer(lambda m, b: m.loss(b), plm, TrainConfig(**kw), device="cpu")
 
