@@ -45,7 +45,16 @@ non-zero and print no result):
              lower measured peak; then two ``Trainer(plan_budget=...)`` steps
              beside two unplanned ones from the same weights and batches
              (same losses and grad norms, re-planning nothing);
-8. result  — the ``kernels`` JSON line, the card's name and power limit,
+8. serve   — ``repro_torch.launch.serve`` at full stablelm-3b width and
+             depth: 16 requests of 64 new tokens through 8 slots of a
+             2048-token KV cache; engine steps, median and p90 step time,
+             output tok/s, peak memory, KV-cache bytes and the kernels'
+             launches (none: decode is plain PyTorch, as in the reference);
+             every request must complete with its tokens and every logit be
+             finite; then teacher forcing at the same width: 128 tokens
+             decoded step by step against ``LM.forward`` (which launches
+             ``flash_fwd``), in f32 and in bf16;
+9. result  — the ``kernels`` JSON line, the card's name and power limit,
              and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and outside a checkout.
@@ -67,6 +76,14 @@ TRADE_UNITS = 8
 # the planned phase's depth: planning time grows steeply with the node count
 # (603 nodes at 8 units); width is never cut
 PLANNED_UNITS = 8
+SERVE_ARGS = ["--full", "--requests", "16", "--slots", "8", "--max-seq", "2048",
+              "--new-tokens", "64"]
+TEACHER_TOKENS = 128
+# step-by-step decode against the full forward at full width (the limits of
+# PERF.md's serving prediction): f32 max |gap|; bf16 max and mean |gap| and
+# the share of positions whose greedy token agrees
+TEACHER_F32_TOL = 1e-3
+TEACHER_BF16_MAX, TEACHER_BF16_MEAN, TEACHER_BF16_AGREE = 0.5, 0.05, 0.8
 # (name, B, H, KV, Sq, Sk, D, dtype name); the first is the training path's shape
 KERNEL_CASES = [
     ("path", 2, 32, 32, 1024, 1024, 80, "bfloat16"),
@@ -470,6 +487,33 @@ KERNEL_KINDS = [("fwd_kernel", "flash_fwd"), ("dq_kernel", "flash_bwd_dq"),
                 ("nvjet", "matmul"), ("cutlass", "matmul")]
 
 
+def print_device_time(tag: str, what: str, prof, wall_ms: float, n: int = 1) -> None:
+    """Device time of a ``torch.profiler`` trace over ``n`` repeats: busy
+    time, idle share and time by kind of kernel, each per repeat, and the
+    kernels that take most of "other"."""
+    import torch
+
+    by_kind, other, n_kernels = {}, {}, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / n
+        kind = next((k for frag, k in KERNEL_KINDS if frag in e.name), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        if kind == "other":
+            other[e.name] = other.get(e.name, 0.0) + ms
+        n_kernels += 1
+    busy = sum(by_kind.values())
+    print(f"[{tag}] {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"over {n_kernels / n:g} device events, idle share "
+          + (f"{1 - busy / wall_ms:.4f}" if busy else "not measured (no device "
+             "time in the trace)"))
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}] {kind:14s} {ms:10.3f} ms  {ms / busy:.4f} of device time")
+    for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[{tag}]   other: {ms:9.3f} ms  {name[:110]}")
+
+
 def phase_profile(state):
     """One step of the launcher's Trainer, on its plan at full width, under
     ``torch.profiler``: device time by kind of kernel, the kernels that take
@@ -503,25 +547,7 @@ def phase_profile(state):
         tr.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind, other, n_kernels = {}, {}, 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.time_range.elapsed_us() / 1e3
-        kind = next((k for frag, k in KERNEL_KINDS if frag in e.name), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
-        if kind == "other":
-            other[e.name] = other.get(e.name, 0.0) + ms
-        n_kernels += 1
-    busy = sum(by_kind.values())
-    print(f"[profile] one step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-          f"over {n_kernels} device events, idle share "
-          + (f"{1 - busy / wall_ms:.4f}" if busy else "not measured (no device "
-             "time in the trace)"))
-    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {kind:14s} {ms:10.3f} ms  {ms / busy:.4f} of device time")
-    for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"[profile]   other: {ms:9.3f} ms  {name[:110]}")
+    print_device_time("profile", "one step", prof, wall_ms)
 
     grads = [torch.ones_like(p) for p in tr.params]
     update_ms = time_ms(lambda: adamw.update(tr.cfg.optimizer, grads, tr.opt_state,
@@ -760,6 +786,115 @@ def phase_planned(results):
     check(worst <= 1e-3, "the planned Trainer's losses or grad norms differ beyond rtol 1e-3")
 
 
+def phase_serve(results):
+    """The serving launcher at full width, then step-by-step decode against
+    the full forward on the same tokens."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    serve = importlib.import_module("repro_torch.launch.serve")
+    transformer = importlib.import_module("repro_torch.models.transformer")
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every decode step's logits are checked on the device, read once at the end
+    finite = []
+    decode_step = transformer.LM.decode_step
+
+    def checked(self, tokens, caches, position):
+        logits, caches = decode_step(self, tokens, caches, position)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    transformer.LM.decode_step = checked
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = serve.main(SERVE_ARGS)
+    finally:
+        transformer.LM.decode_step = decode_step
+    counts = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    eng, done = out["engine"], out["completed"]
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for block in eng.caches.values() for t in block.values())
+    ms = np.array(out["step_seconds"]) * 1e3
+    tokens = sum(len(r.output) for r in done)
+    all_finite = bool(torch.stack(finite).all())
+    print(f"[serve] {len(done)} requests, {tokens} tokens, {out['steps']} engine steps in "
+          f"{out['seconds']:.4f} s: {tokens / out['seconds']:.1f} output tok/s")
+    print(f"[serve] step ms: first {ms[0]:.4f}, median {np.median(ms):.4f}, p90 "
+          f"{np.percentile(ms, 90):.4f}, min {ms.min():.4f}, max {ms.max():.4f}")
+    print(f"[serve] max_memory_allocated {peak} B ({peak / total:.3f} of {total} B); "
+          f"KV cache {cache_bytes} B")
+    print(f"[serve] launches {json.dumps(counts)}; all logits finite {all_finite}")
+    check(len(done) == 16 and all(len(r.output) == 64 for r in done),
+          "a request did not complete with its 64 tokens")
+    check(all_finite, "a decode step gave a non-finite logit")
+    check(peak < 0.9 * total, "serving took more than 0.9 of the card's memory")
+    check(not any(counts.values()), "the engine's plain decode launched a kernel")
+    for name in fa.KERNELS:
+        results[name]["serve_launches"] = counts[name]
+
+    # Where a step's time goes: the engine's decode step (its model, caches
+    # and last positions) and the logits' copy to the host, under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.ones(eng.max_slots, 1, dtype=torch.int64, device=eng.device)
+    position = torch.from_numpy(eng.positions).to(eng.device, torch.int64)
+    eng.model.decode_step(tokens, eng.caches, position)[0].cpu()  # warm-up
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.model.decode_step(tokens, eng.caches, position)[0].cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    print_device_time("serve", f"one decode step (mean of {n}, profiled)", prof, wall_ms, n)
+    del out, eng, done, finite, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    base = configs.get_config("stablelm-3b")
+    toks = torch.randint(0, base.vocab_size, (1, TEACHER_TOKENS),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    for dtn in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtn)
+        model = models.build_model(cfg, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            full = model(toks)
+        counts = dict(fa.LAUNCHES)
+        caches = model.init_caches(1, TEACHER_TOKENS)
+        stepwise = torch.stack([
+            model.decode_step(toks[:, t:t + 1], caches, torch.tensor([t], device=dev))[0][:, 0]
+            for t in range(TEACHER_TOKENS)], 1)
+        gap = (stepwise - full).abs()
+        worst, mean = gap.max().item(), gap.mean().item()
+        agree = (stepwise.argmax(-1) == full.argmax(-1)).float().mean().item()
+        print(f"[serve] teacher forcing {dtn}, {TEACHER_TOKENS} tokens: max |gap| {worst:.4e}, "
+              f"mean |gap| {mean:.4e}, greedy agreement {agree:.4f}; forward launches "
+              f"{json.dumps(counts)}; logits max |x| {full.abs().max().item():.4f}")
+        check(counts["flash_fwd"] == model.n_units, "the forward did not launch flash_fwd "
+              "once a unit")
+        if dtn == "float32":
+            check(worst <= TEACHER_F32_TOL, "f32 decode differs from the forward")
+        else:
+            check(worst <= TEACHER_BF16_MAX and mean <= TEACHER_BF16_MEAN
+                  and agree >= TEACHER_BF16_AGREE, "bf16 decode differs from the forward")
+        del model, caches, full, stepwise, gap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -785,6 +920,7 @@ def main() -> int:
         ("profile", lambda: phase_profile(state)),
         ("trade", lambda: phase_trade(state)),
         ("planned", lambda: phase_planned(results)),
+        ("serve", lambda: phase_serve(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -1,1 +1,2 @@
-"""Launchers: planning against the card's memory and the training CLI."""
+"""Launchers: planning against the card's memory, and the training and
+serving CLIs."""

@@ -30,3 +30,10 @@ def device_hbm_bytes(device: Optional[Union[str, torch.device]] = None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass hbm_bytes explicitly on the CPU")
     return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def planning_hbm_bytes(device: torch.device) -> float:
+    """The memory a launcher plans against on ``device``: the card's on
+    CUDA, the reference's per-device figure on the CPU (so CPU plans equal
+    the reference's)."""
+    return device_hbm_bytes(device) if device.type == "cuda" else REFERENCE_HBM_BYTES

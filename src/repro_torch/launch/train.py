@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import DataConfig, SyntheticLM
-from repro_torch.launch.mesh import REFERENCE_HBM_BYTES, device_hbm_bytes
+from repro_torch.launch.mesh import planning_hbm_bytes
 from repro_torch.launch.steps import segment_plan
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import AdamWConfig
@@ -61,7 +61,7 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
-    hbm = device_hbm_bytes(device) if device.type == "cuda" else REFERENCE_HBM_BYTES
+    hbm = planning_hbm_bytes(device)
 
     if args.plan_cache_dir:
         from repro_torch.core.plan_cache import set_default_cache_dir

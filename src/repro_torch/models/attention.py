@@ -5,8 +5,9 @@ only TPU runs with ``S % 128 == 0`` to its Pallas kernel, the port sends
 every full-sequence attention to ``kernels.flash_attention``: the CUDA
 kernels on the card (any length, bounds-checked), their plain versions on
 the CPU.  ``dense_attention`` is the O(S²)-memory reference the tests
-compare with.  ``chunked_attention`` and ``decode_attention`` wait for
-ROADMAP.md module queue, items 'Other model families' and 'Serving'.
+compare with.  ``decode_attention`` is one step of KV-cache decode in plain
+PyTorch, as the reference's is plain array code.  ``chunked_attention``
+waits for ROADMAP.md module queue, item 'Other model families'.
 """
 
 from __future__ import annotations
@@ -81,3 +82,42 @@ def attention(
     q, k, v = qkv_proj(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta)
     ctx = flash_attention(q, k, v, causal=causal)
     return ctx.reshape(B, S, n_heads * d_head) @ p["wo"].to(x.dtype)
+
+
+def decode_attention(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    position: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    d_head: int,
+    rope_theta: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step.  x (B,1,d); cache_k/v (B,S,KV,D); position (B,).
+
+    Writes each row's new k and v into the caches in place and returns
+    (out (B,1,d), cache_k, cache_v), the caches being the same tensors.  As
+    the reference's ``dynamic_update_slice_in_dim`` does, a position past
+    the cache's end writes to its last row, while RoPE and the mask see the
+    position itself.
+    """
+    B = x.shape[0]
+    q, k, v = qkv_proj(p, x, n_heads, n_kv_heads, d_head, position[:, None],
+                       rope_theta)
+    S = cache_k.shape[1]
+    rows = torch.arange(B, device=x.device)
+    at = position.clamp(0, S - 1)
+    cache_k[rows, at] = k[:, 0]
+    cache_v[rows, at] = v[:, 0]
+
+    kf = _expand_kv(cache_k, n_heads)
+    vf = _expand_kv(cache_v, n_heads)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(d_head)
+    valid = torch.arange(S, device=x.device)[None, :] <= position[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    return ctx.reshape(B, 1, n_heads * d_head) @ p["wo"].to(x.dtype), cache_k, cache_v

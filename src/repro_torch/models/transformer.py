@@ -13,8 +13,14 @@ segment with remat under ``torch.utils.checkpoint`` (non-reentrant) — the
 canonical strategy (§3) on the unit chain, whose cached boundaries ∂(L_i)
 are exactly the segment inputs.  The reference groups runs of equal
 segments into nested scans to keep its HLO small; eager mode needs no such
-grouping.  Decode and the other families (MoE, SSM, hybrid, whisper) wait
-for ROADMAP.md module queue, items 'Serving' and 'Other model families'.
+grouping.
+
+Decode (``init_caches``/``decode_step``) keeps the reference's cache tree,
+``{"b{i}_attn_mlp": {"k", "v"}}`` with each leaf (n_units, B, S, KV, D) in
+the activation dtype; each unit decodes on its own slice (a view) and
+writes its new k and v there in place.  The other families (MoE, SSM,
+hybrid, whisper), their decode steps included, wait for ROADMAP.md module
+queue, item 'Other model families': ``Unit`` raises for their blocks.
 """
 
 from __future__ import annotations
@@ -101,6 +107,16 @@ class Attention(nn.Module):
             rope_theta=c.rope_theta, positions=positions,
         )
 
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               position: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        out, _, _ = attn.decode_attention(
+            dict(self.named_parameters(recurse=False)), x, cache["k"], cache["v"],
+            position, n_heads=c.n_heads, n_kv_heads=c.n_kv_heads,
+            d_head=c.head_dim, rope_theta=c.rope_theta,
+        )
+        return out
+
 
 class SwiGLU(nn.Module):
     def __init__(self, d_model: int, d_ff: int, device=None, generator=None):
@@ -128,6 +144,11 @@ class AttnMLP(nn.Module):
         h = h + self.attn(self.ln1(h), positions)
         return h + self.mlp(self.ln2(h))
 
+    def decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+               position: torch.Tensor) -> torch.Tensor:
+        h = h + self.attn.decode(self.ln1(h), cache, position)
+        return h + self.mlp(self.ln2(h))
+
 
 class Unit(nn.Module):
     """One repeat of the unit pattern; blocks are named ``b{i}_{kind}`` as
@@ -150,6 +171,12 @@ class Unit(nn.Module):
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         for name in self.block_names:
             h = getattr(self, name)(h, positions)
+        return h
+
+    def decode(self, h: torch.Tensor, caches: Dict[str, Dict[str, torch.Tensor]],
+               position: torch.Tensor) -> torch.Tensor:
+        for name in self.block_names:
+            h = getattr(self, name).decode(h, caches[name], position)
         return h
 
 
@@ -191,6 +218,9 @@ class LM(nn.Module):
             h, self.layers, lambda unit, x: unit(x, positions),
             segment_sizes, segment_remat,
         )
+        return self._logits(h)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rmsnorm(self.final_norm.scale, h)
         table = self.embedding.embed if self.cfg.tie_embeddings else self.head.unembed
         return unembed(table, h)
@@ -203,6 +233,37 @@ class LM(nn.Module):
     ) -> torch.Tensor:
         logits = self.forward(batch["tokens"], segment_sizes, segment_remat)
         return softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
+
+    # ------------------------------------------------------------------ decode
+
+    def init_caches(self, batch: int, max_seq: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Zero KV caches for ``batch`` sequences of up to ``max_seq`` tokens,
+        on the model's device: ``{"b{i}_attn_mlp": {"k": t, "v": t}}``, each
+        t (n_units, batch, max_seq, KV, D) in the activation dtype."""
+        cfg = self.cfg
+        shape = (self.n_units, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        kw = dict(dtype=cfg.activation_dtype, device=self.embedding.embed.device)
+        return {name: {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+                for name in self.layers[0].block_names}
+
+    @torch.no_grad()
+    def decode_step(
+        self,
+        tokens: torch.Tensor,
+        caches: Dict[str, Dict[str, torch.Tensor]],
+        position: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
+        """tokens (B, 1), position (B,) → (f32 logits (B, 1, V), caches).
+
+        Each row's k and v go into the caches at its position, in place; the
+        returned caches are the given ones.
+        """
+        h = embed(self.embedding.embed, tokens, self.cfg.activation_dtype)
+        for u, unit in enumerate(self.layers):
+            unit_caches = {name: {kv: t[u] for kv, t in c.items()}
+                           for name, c in caches.items()}
+            h = unit.decode(h, unit_caches, position)
+        return self._logits(h), caches
 
 
 def default_segments(n_units: int) -> Tuple[int, ...]:
