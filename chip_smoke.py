@@ -26,7 +26,8 @@ non-zero and print no result):
              the port) as device time, replayed from a CUDA graph;
 3. launcher — ``repro_torch.launch.train`` at full stablelm-3b width for 3
              steps (batch 2, seq 1024), budgeted from the card's memory,
-             with the launch counts of the three kernels over the run;
+             with the launch counts of the three kernels over the run, under
+             ``REPRO_VERIFY_PLANS=1`` (the plan verifier checks its plan);
 4. witness — the same launcher run with the attention through the plain
              ``dense_attention`` instead of the kernels: step 1 (same
              weights and batch) must agree, and the losses of all three
@@ -45,7 +46,17 @@ non-zero and print no result):
              lower measured peak; then two ``Trainer(plan_budget=...)`` steps
              beside two unplanned ones from the same weights and batches
              (same losses and grad norms, re-planning nothing);
-8. serve   — ``repro_torch.launch.serve`` at full stablelm-3b width and
+8. analysis — the analysis layer on phase planned's workload: the effect
+             pass (the 8 flash nodes opaque and pinned, nothing else
+             tainted); ``plan_function(analyze_effects=True, verify=True,
+             verify_hlo=True)`` at the exact minimal budget (no flash node
+             recomputed, loss and grads bitwise, launch counts of the three
+             kernels); the same call without effects, with its heavy-op
+             census and memory-drift record; a corrupted plan rejected by
+             ``check_plan`` with the reference's codes; the launcher's
+             verification count; and ``python -m repro_torch.analysis
+             --traced quickstart --hlo --device cuda``, which must exit 0;
+9. serve   — ``repro_torch.launch.serve`` at full stablelm-3b width and
              depth: 16 requests of 64 new tokens through 8 slots of a
              2048-token KV cache; engine steps, median and p90 step time,
              output tok/s, peak memory, KV-cache bytes and the kernels'
@@ -54,7 +65,7 @@ non-zero and print no result):
              finite; then teacher forcing at the same width: 128 tokens
              decoded step by step against ``LM.forward`` (which launches
              ``flash_fwd``), in f32 and in bf16;
-9. result  — the ``kernels`` JSON line, the card's name and power limit,
+10. result — the ``kernels`` JSON line, the card's name and power limit,
              and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and outside a checkout.
@@ -65,6 +76,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -401,9 +413,24 @@ def phase_launcher(results, state):
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     train = importlib.import_module("repro_torch.launch.train")
+    analysis = importlib.import_module("repro_torch.analysis")
+    # the launcher verifies its plan (REPRO_VERIFY_PLANS=1 -> check_plan);
+    # the reports are counted here and the count read by phase analysis
+    reports, check_plan = [], analysis.check_plan
+
+    def counted(*a, **kw):
+        reports.append(check_plan(*a, **kw))
+        return reports[-1]
+
+    analysis.check_plan = counted
+    os.environ["REPRO_VERIFY_PLANS"] = "1"
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    out = train.main(TRAIN_ARGS)
+    try:
+        out = train.main(TRAIN_ARGS)
+    finally:
+        del os.environ["REPRO_VERIFY_PLANS"]
+        analysis.check_plan = check_plan
     counts = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -430,8 +457,12 @@ def phase_launcher(results, state):
           "flash_fwd launches do not match the units run and recomputed")
     check(counts["flash_bwd_dq"] == steps * n and counts["flash_bwd_dkv"] == steps * n,
           "backward kernel launches do not match the units run")
+    print(f"[launcher] REPRO_VERIFY_PLANS=1: check_plan ran {len(reports)} time(s), "
+          f"reports ok {[r.ok for r in reports]}")
+    check(bool(reports) and all(r.ok for r in reports), "the launcher's plan was not verified")
     for name, c in counts.items():
         results[name]["launches"] = c
+    state["launcher_verified"] = len(reports)
     state["plan"] = sp
     state["launcher"] = out
 
@@ -638,23 +669,19 @@ def phase_trade(state):
     check(peak1 < peak0, "planned run did not lower the measured peak")
 
 
-def phase_planned(results):
-    """``plan_function`` on the full-width loss, against plain autograd."""
+def planned_setup():
+    """The front door's workload (phases planned and analysis): stablelm-3b
+    at full width, ``PLANNED_UNITS`` units, batch 2 x seq 1024, weights from
+    seed 0 on the card; returns the model, the data stream, batch 0, the
+    loss, its functional form and its parameters."""
     import dataclasses
-    import gc
 
     import torch
 
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     configs = importlib.import_module("repro_torch.configs")
     models = importlib.import_module("repro_torch.models")
     data = importlib.import_module("repro_torch.data")
-    core = importlib.import_module("repro_torch.core")
-    lowering = importlib.import_module("repro_torch.core.lowering")
     train = importlib.import_module("repro_torch.train")
-    
-    gc.collect()
-    torch.cuda.empty_cache()
     dev = torch.device("cuda")
     n = PLANNED_UNITS
     cfg = dataclasses.replace(configs.get_config("stablelm-3b"), n_layers=n)
@@ -667,6 +694,26 @@ def phase_planned(results):
         return m.loss(b, (n,), (False,))
 
     step_loss, params = train.functional_loss(loss_fn, model)
+    return model, stream, batch, loss_fn, step_loss, params
+
+
+def phase_planned(results):
+    """``plan_function`` on the full-width loss, against plain autograd."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    core = importlib.import_module("repro_torch.core")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    train = importlib.import_module("repro_torch.train")
+    n = PLANNED_UNITS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    model, stream, batch, loss_fn, step_loss, params = planned_setup()
     t0 = time.perf_counter()
     carrier = lowering.TracedCarrier.trace(step_loss, (params, batch))
     trace_s = time.perf_counter() - t0
@@ -784,6 +831,149 @@ def phase_planned(results):
           f"worst relative error {worst:.3e}")
     check(la[0] == lb[0], "the planned Trainer's first loss differs from the unplanned one")
     check(worst <= 1e-3, "the planned Trainer's losses or grad norms differ beyond rtol 1e-3")
+
+
+def phase_analysis(results, state):
+    """The analysis layer (``repro_torch.analysis``) on the front door's
+    workload: the effect pass, the verified plan with effects on and off,
+    the heavy-op census and the memory-drift record, a corrupted plan, the
+    launcher's verification and the ``plan_lint`` CLI on the card."""
+    import collections
+    import dataclasses
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    core = importlib.import_module("repro_torch.core")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    analysis = importlib.import_module("repro_torch.analysis")
+    census = importlib.import_module("repro_torch.analysis.census")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, batch, _, step_loss, params = planned_setup()
+    args = (params, batch)
+    planner = core.get_default_planner()
+
+    # 1. the effect pass
+    t0 = time.perf_counter()
+    pinned = lowering.TracedCarrier.trace(step_loss, args, analyze_effects=True)
+    ea, g = pinned.effects, pinned.to_graph()
+    flash = {nd.idx for nd in g.nodes if nd.kind == "flash_attention"}
+    by_class = collections.Counter((e.klass, e.primitive) for e in ea.effects if not e.pure)
+    print(f"[analysis] effect pass over {g.n} nodes in {time.perf_counter() - t0:.2f} s: "
+          f"tainted {dict(by_class)}; {len(ea.pins)} pins "
+          f"({dict(collections.Counter(g.nodes[v].kind for v in ea.pins))}), "
+          f"{sum(g.nodes[v].memory for v in ea.pins):.6e} B")
+    check(len(flash) == PLANNED_UNITS and ea.tainted == flash and ea.pins == flash
+          and all(ea.effects[v].klass == "opaque" for v in flash),
+          "the effect pass should taint and pin exactly the flash-attention nodes")
+
+    def run(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        loss, grads = fn(*args)
+        torch.cuda.synchronize()
+        return loss.cpu(), grads, dict(fa.LAUNCHES)
+
+    # 2. verification with effects on (the phase's main path)
+    t0 = time.perf_counter()
+    planned = lowering.plan_function(step_loss, analyze_effects=True, verify=True,
+                                     verify_hlo=True, planner=planner)
+    lowered = planned.lowered_for(*args)
+    plan_s = time.perf_counter() - t0
+    plan = lowered.plan
+    rec = set().union(*(s.recompute for s in plan.segments))
+    planned(*args)  # warm-up outside the counts
+    l1, g1, c1 = run(planned)
+    l0, g0, c0 = run(lowering.vanilla_traced_value_and_grad(lowered.carrier))
+    print(f"[analysis] effects on: traced, planned, verified (check_plan, census, drift "
+          f"gate) in {plan_s:.2f} s at the exact minimal budget {lowered.report.budget:.6e} B: "
+          f"peak {plan.peak_memory:.6e} B, overhead {plan.overhead:g} of {g.total_time:g}, "
+          f"{plan.num_segments} segments, {len(rec)} nodes and {len(flash & rec)} flash "
+          f"nodes recomputed; launches planned {json.dumps(c1)}, vanilla {json.dumps(c0)}")
+    print(f"[analysis] effects on: loss {l1.item():.8f} bitwise {torch.equal(l0, l1)}")
+    grads_ok = all(torch.equal(g1[k], g0[k]) for k in g0)
+    print(f"[analysis] effects on: grads bitwise {grads_ok}")
+    del g0, g1
+    check(not flash & rec, "a pinned flash-attention node is recomputed")
+    check(torch.equal(l0, l1) and grads_ok, "the pinned plan's loss or grads differ from vanilla")
+    check(c1 == c0 == {name: PLANNED_UNITS for name in fa.KERNELS},
+          "the pinned plan relaunched a flash kernel")
+    for name in fa.KERNELS:
+        results[name]["analysis_launches"] = c1[name]
+
+    # 3. verification with effects off: phase planned's plan, which recomputes
+    # every flash node; its census and drift record
+    t0 = time.perf_counter()
+    unpinned = lowering.plan_function(step_loss, verify=True, verify_hlo=True,
+                                      planner=planner).lowered_for(*args)
+    verify_s = time.perf_counter() - t0
+    uplan = unpinned.plan
+    urec = set().union(*(s.recompute for s in uplan.segments))
+    print(f"[analysis] effects off: traced, planned, verified in {verify_s:.2f} s at "
+          f"{unpinned.report.budget:.6e} B (pinned budget minus this: "
+          f"{lowered.report.budget - unpinned.report.budget:.6e} B); "
+          f"{len(flash & urec)} flash nodes recomputed")
+    res = unpinned.hlo  # the census and drift gate that verify_hlo ran
+    check(res is not None, "verify_hlo kept no census record")
+    cen, drift = res.census, res.drift
+    print(f"[analysis] census: heavy ops vanilla {cen.vanilla}, planned {cen.planned}, "
+          f"expected {cen.expected} (band of planned - vanilla: "
+          f"[{cen.unpacked_recompute}, {cen.plan_recompute}]); {len(cen.rerun)} nodes rerun, "
+          f"all in V \\ U_k: {cen.rerun <= urec}")
+    print(f"[analysis] drift record {json.dumps(drift)}; band "
+          f"{uplan.peak_memory * (1 + census.DRIFT_REL) + census.DRIFT_ABS_SLACK:.6e} B")
+    for f in res.report.findings:
+        print(f"[analysis]   {f.severity}: {f.code}: {f.message}")
+    check(res.report.ok, "the census or the drift gate failed on the unpinned plan")
+    check(cen.extra == cen.plan_recompute and cen.rerun <= urec,
+          "the census does not match the plan's heavy recompute")
+
+    # 4. a corrupted plan: one cached node moved to its segment's recompute set
+    seg = next(s for s in uplan.segments if s.keep and s.recompute)
+    victim = min(seg.keep)
+    moved = dataclasses.replace(seg, keep=seg.keep - {victim},
+                                recompute=seg.recompute | {victim})
+    bad = dataclasses.replace(uplan, cached=uplan.cached - {victim}, segments=tuple(
+        moved if s.index == seg.index else s for s in uplan.segments))
+    rep = analysis.check_plan(unpinned.carrier.to_graph(), bad,
+                              budget=unpinned.report.budget, fx=unpinned.carrier.fx)
+    codes = sorted({f.code for f in rep.errors()})
+    print(f"[analysis] corrupted plan (node {victim} moved to segment {seg.index}'s "
+          f"recompute set): ok {rep.ok}, error codes {codes}")
+    check(not rep.ok and {"cache-set-mismatch", "keep-mismatch",
+                          "recompute-mismatch"} <= set(codes),
+          "check_plan did not reject the corrupted plan with the reference's codes")
+
+    # 5. the launcher's plan under REPRO_VERIFY_PLANS=1 (phase launcher)
+    calls = state.get("launcher_verified")
+    print(f"[analysis] launcher under REPRO_VERIFY_PLANS=1 (phase launcher, full width and "
+          f"depth): check_plan ran {calls} time(s), every report ok")
+    check(bool(calls), "the launcher's plan was not verified")
+    del lowered, unpinned, planned, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. the plan_lint CLI on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        drift_path = os.path.join(tmp, "drift.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--traced", "quickstart", "--hlo",
+             "--device", "cuda", "--drift-json", drift_path],
+            capture_output=True, text=True, cwd=ROOT, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        for line in (proc.stdout + proc.stderr).strip().splitlines():
+            print(f"[analysis] cli: {line}")
+        records = json.load(open(drift_path))["records"] if proc.returncode == 0 else []
+    print(f"[analysis] cli exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+          f"drift records {json.dumps(records)}")
+    check(proc.returncode == 0, "python -m repro_torch.analysis --traced quickstart --hlo failed")
 
 
 def phase_serve(results):
@@ -920,6 +1110,7 @@ def main() -> int:
         ("profile", lambda: phase_profile(state)),
         ("trade", lambda: phase_trade(state)),
         ("planned", lambda: phase_planned(results)),
+        ("analysis", lambda: phase_analysis(results, state)),
         ("serve", lambda: phase_serve(results)),
     ]
     for name, fn in phases:

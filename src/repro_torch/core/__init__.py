@@ -22,6 +22,7 @@ from .cost_model import (
     measured_times,
     profile_ops,
 )
+from .dfs import exhaustive_search
 from .dp import (
     MEMORY_FUNCTIONAL,
     DPResult,
@@ -98,6 +99,7 @@ __all__ = [
     "all_lower_sets",
     "pruned_lower_sets",
     "count_lower_sets",
+    "exhaustive_search",
     "DPResult",
     "solve",
     "sweep",

@@ -10,6 +10,14 @@ an output of v.  Graph inputs (parameters, batch) are not nodes (§2).
 
 Rules, and where they differ from the reference:
 
+* The trace is functionalized (``torch.func.functionalize``, mutations
+  removed), as a jaxpr is functional: an in-place op becomes its
+  out-of-place twin (dropout's ``bernoulli_`` becomes ``bernoulli``), so
+  every node owns its value and recomputing one never writes a cached one.
+  A write to an input becomes a ``copy_`` into its placeholder at the end
+  of the graph, which the effect analysis classes effectful.  Functions
+  that mutate nothing trace to the same graph either way.
+
 * ``getitem`` folds into its multi-output producer, whose ``M_v`` is the sum
   of its outputs: one node per equation, as in the reference.
 * **Divergence.**  Aliasing views (``view``, ``_unsafe_view``, ``t``,
@@ -153,8 +161,10 @@ def from_graph_module(gm: fx.GraphModule, cost_model: str = "paper") -> FxGraph:
 
 
 def trace_module(fn: Callable[..., Any], *example_args: Any) -> fx.GraphModule:
-    """``make_fx`` in fake mode: shapes, dtypes and devices only."""
-    return make_fx(fn, tracing_mode="fake")(*example_args)
+    """``make_fx`` in fake mode (shapes, dtypes and devices only) of the
+    functionalized ``fn``."""
+    functional = torch.func.functionalize(fn, remove="mutations")
+    return make_fx(functional, tracing_mode="fake")(*example_args)
 
 
 def trace(fn: Callable[..., Any], *example_args: Any,

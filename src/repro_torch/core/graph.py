@@ -69,7 +69,7 @@ class Node:
       time: forward computation cost ``T_v`` (paper: 10 for conv, 1 otherwise).
       memory: memory consumption cost ``M_v`` (bytes, or abstract units).
       kind: free-form tag ("conv", "matmul", "elementwise", ...).
-      must_store: hard pin from effect analysis (the reference's ``repro.analysis``) — the
+      must_store: hard pin from effect analysis (``repro_torch.analysis``) — the
         node's value may not be recomputed (PRNG draw, side effect, opaque
         higher-order equation), so every plan must keep it resident from its
         forward computation until its last use.

@@ -12,6 +12,9 @@ by the lowering backends:
   = aten op; the production lowering is ``"fx"``.
 
 Both expose ``to_graph()`` (planner input) and ``default_backend``.
+``TracedCarrier.trace(..., analyze_effects=True)`` runs the effect pass
+(``repro_torch.analysis.effects``) and pins its ``must_store`` frontier
+into the graph, which then hashes to its own plan-cache digest.
 Sharded carriers (``mesh=``/``in_shardings=``) wait for ROADMAP.md module
 queue, item 'Multi-device'.
 """
@@ -19,7 +22,7 @@ queue, item 'Multi-device'.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.utils._pytree as pytree
@@ -70,6 +73,9 @@ class TracedCarrier:
     in_spec: Any  # pytree spec of the args tuple
     arg_slices: Tuple[Tuple[int, int], ...]  # flat-leaf span per position arg
     fx: FxGraph
+    #: the effect analysis (``analysis.effects.EffectAnalysis``) when traced
+    #: with ``analyze_effects=True``, else None
+    effects: Optional[Any] = None
 
     default_backend = "fx"
 
@@ -82,6 +88,7 @@ class TracedCarrier:
         cost_model: str = "paper",
         mesh: Any = None,
         in_shardings: Any = None,
+        analyze_effects: bool = False,
     ) -> "TracedCarrier":
         reject_mesh(mesh, in_shardings)
         flat, in_spec = pytree.tree_flatten(tuple(args))
@@ -105,11 +112,25 @@ class TracedCarrier:
                 "(torch.autograd.grad semantics); got "
                 f"{getattr(val, 'shape', type(val).__name__)}"
             )
+        effects = None
+        if analyze_effects:
+            # classify the nodes, derive must_store pins on the storable
+            # frontier of any taint, and rebuild the graph with the pins so
+            # the planner treats them as store-only (and the plan-cache
+            # digest differs from the unpinned variant's)
+            from ...analysis.effects import analyze_effects as _analyze, pin_graph
+
+            effects = _analyze(fxg)
+            if effects.pins:
+                fxg = dataclasses.replace(fxg, graph=pin_graph(fxg.graph, effects.pins))
         return cls(fn=fn, argnums=argnums, cost_model=cost_model, in_spec=in_spec,
-                   arg_slices=tuple(slices), fx=fxg)
+                   arg_slices=tuple(slices), fx=fxg, effects=effects)
 
     def to_graph(self) -> Graph:
         return self.fx.graph
+
+    def node_names(self) -> List[str]:
+        return [nd.name for nd in self.fx.graph.nodes]
 
     @property
     def argnum_tuple(self) -> Tuple[int, ...]:

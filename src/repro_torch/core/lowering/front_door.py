@@ -19,6 +19,7 @@ re-running the DP.  The twin runs on the device of its arguments.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -38,6 +39,9 @@ class LoweredPlan:
     plan: ExecutionPlan
     backend: str
     run: Callable[..., Any]
+    #: the census and drift record (``analysis.census.HloAnalysis``) when
+    #: ``verify_hlo`` ran
+    hlo: Optional[Any] = None
 
 
 class PlannedFunction:
@@ -60,6 +64,9 @@ class PlannedFunction:
         loss_fn: Optional[Callable[..., Any]],
         planner: Optional[Any],
         track_live: bool,
+        analyze_effects: bool = False,
+        verify: bool = False,
+        verify_hlo: bool = False,
     ):
         self.fn = fn
         self.budget = budget
@@ -71,6 +78,9 @@ class PlannedFunction:
         self.loss_fn = loss_fn
         self.planner = planner
         self.track_live = track_live
+        self.analyze_effects = analyze_effects
+        self.verify = verify
+        self.verify_hlo = verify_hlo
         self._memo: Dict[Tuple, LoweredPlan] = {}
 
     def _carrier_for(self, args) -> Any:
@@ -88,7 +98,8 @@ class PlannedFunction:
             return BlockGraphCarrier(bg=fn, loss_fn=self.loss_fn, params=meta[0],
                                      inputs=meta[1], cost_model=self.cost_model)
         return TracedCarrier.trace(fn, args, argnums=self.argnums,
-                                   cost_model=self.cost_model)
+                                   cost_model=self.cost_model,
+                                   analyze_effects=self.analyze_effects)
 
     def lowered_for(self, *args) -> LoweredPlan:
         """Trace + plan + lower for this argument signature (memoized)."""
@@ -111,10 +122,28 @@ class PlannedFunction:
                 f"no feasible strategy for budget {self.budget!r} "
                 f"({self.method}/{self.objective}){hint}"
             )
+        env_verify = os.environ.get("REPRO_VERIFY_PLANS", "")
+        if self.verify or env_verify:
+            from ...analysis import check_plan
+            from ...analysis.report import PlanVerificationError
+
+            vrep = check_plan(g, report.plan, budget=self.budget,
+                              effects=getattr(carrier, "effects", None),
+                              fx=getattr(carrier, "fx", None))
+            if not vrep.ok:
+                raise PlanVerificationError(str(vrep))
+        hlo = None
+        if self.verify_hlo or env_verify.strip().lower() == "hlo":
+            from ...analysis.census import analyze_hlo
+            from ...analysis.report import PlanVerificationError
+
+            hlo = analyze_hlo(carrier, report.plan, args=args)
+            if not hlo.report.ok:
+                raise PlanVerificationError(str(hlo.report))
         backend = resolve_backend(self.backend, carrier)
         run = backend.lower(carrier, report.plan, track_live=self.track_live)
         lowered = LoweredPlan(carrier=carrier, report=report, plan=report.plan,
-                              backend=backend.name, run=run)
+                              backend=backend.name, run=run, hlo=hlo)
         self._memo[key] = lowered
         return lowered
 
@@ -173,17 +202,40 @@ def plan_function(
     track_live:
         Interpreter backend only: calls return ``(value, grads, trace)``
         where ``trace`` is the live-intermediate-bytes audit trail.
+    analyze_effects:
+        Run ``repro_torch.analysis``'s effect/determinism pass on the trace:
+        random draws, side-effecting ops and opaque custom ops (the
+        flash-attention op among them) taint the graph and their storable
+        frontier is pinned ``must_store`` — the planner then prices those
+        nodes store-only (never recomputed), and pinned and unpinned
+        variants hash to distinct plan-cache digests.
+    verify:
+        Statically re-verify every produced plan (``analysis.check_plan``:
+        topology, replay soundness, simulated peak vs. budget, eq. (1)
+        overhead, ``M_v``) and raise
+        :class:`~repro_torch.analysis.report.PlanVerificationError` on any
+        error finding before the plan is lowered.
+    verify_hlo:
+        Additionally run the dispatch-truth checks (``analysis.check_hlo``)
+        on the first call's arguments: the planned twin's heavy-op census
+        against plain autograd and the plan's eq. (1) recompute counts, and
+        the memory-drift gate on the card's allocator (the reference's
+        compiled-HLO checks; ``analysis.census`` says what replaced what).
+        Traced carriers only (BlockGraph carriers report ``not-applicable``).
+
+    The ``REPRO_VERIFY_PLANS`` environment variable overrides both flags:
+    any value enables ``verify``; the value ``"hlo"`` enables ``verify``
+    *and* ``verify_hlo``.
 
     ``mesh``/``in_shardings`` (ROADMAP.md item 'Multi-device'),
-    ``analyze_effects``/``verify``/``verify_hlo`` and
-    ``cost_model="compiled"`` (item 'Analysis'), ``donate`` and
-    offload/quantize ``strategies`` (item 'Strategy realization +
-    donation') raise ``NotImplementedError``.
+    ``cost_model="compiled"`` (item 'Measured cost profile': its twin is a
+    timed or ``FlopCounterMode`` profile), ``donate`` and offload/quantize
+    ``strategies`` (item 'Strategy realization + donation') raise
+    ``NotImplementedError``.
     """
     reject_mesh(mesh, in_shardings)
-    if analyze_effects or verify or verify_hlo or cost_model == "compiled":
-        raise not_ported("analyze_effects / verify / verify_hlo / cost_model='compiled'",
-                         "Analysis")
+    if cost_model == "compiled":
+        raise not_ported("cost_model='compiled'", "Measured cost profile")
     if donate or strategies is not None:
         raise not_ported("donate / strategies", "Strategy realization + donation")
     if track_live and backend == "auto":
@@ -192,4 +244,5 @@ def plan_function(
         fn=fn, budget=budget, backend=backend, method=method,
         objective=objective, cost_model=cost_model, argnums=argnums,
         loss_fn=loss_fn, planner=planner, track_live=track_live,
+        analyze_effects=analyze_effects, verify=verify, verify_hlo=verify_hlo,
     )

@@ -20,11 +20,17 @@ marks the ops of ``keep`` nodes ``MUST_SAVE`` and every other op
 early stop is off, so the backward recomputes exactly V_i \\ U_k, once.  A
 segment that recomputes nothing runs plainly.  Loss and gradients are those
 of plain autograd, bitwise on the same device.
+
+The twin exposes what the analysis layer reads (``repro_torch.analysis``):
+``run.node_now()`` is the fx node being evaluated (None between nodes, so
+ops that autograd's derivative formulas run are attributed to no node), and
+``run.policy_saves(node)`` is the selective policy's decision for an fx
+node of a recomputing segment (None elsewhere).
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, Dict, List
 
 import torch
 from torch.utils.checkpoint import (
@@ -52,16 +58,24 @@ def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan):
     fxg = carrier.fx
     progs = traced_programs(fxg, plan)
     placeholders = [n for n in fxg.gm.graph.nodes if n.op == "placeholder"]
-    current: List[Any] = [None]  # the fx node a region is executing
+    current: List[Any] = [None]  # the fx node being evaluated
+    region_keep: Dict[Any, Any] = {}  # fx node of a recomputing segment -> its keep
 
     def evaluate(node, get):
         current[0] = node
-        return fxg.run_node(node, get)
+        try:
+            return fxg.run_node(node, get)
+        finally:
+            current[0] = None
+
+    def saves(node, keep) -> bool:
+        return fxg.owner.get(node) in keep and not is_view(node)
 
     def region_for(prog: SegmentProgram, keep):
+        region_keep.update(dict.fromkeys(prog.steps, keep))
+
         def policy(ctx, op, *args, **kwargs):
-            node = current[0]
-            if fxg.owner.get(node) in keep and not is_view(node):
+            if saves(current[0], keep):
                 return CheckpointPolicy.MUST_SAVE
             return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -97,6 +111,9 @@ def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan):
         loss = forward(flat)
         return loss.detach(), carrier.grads_out(args, grads_like(loss, flat))
 
+    run.node_now = lambda: current[0]
+    run.policy_saves = lambda node: (saves(node, region_keep[node])
+                                     if node in region_keep else None)
     return run
 
 

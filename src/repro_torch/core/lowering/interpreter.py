@@ -21,13 +21,15 @@ hold within the plan's ``peak_memory``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.utils._pytree as pytree
 
-from ..fx_graph import FxGraph
+from ..fx_graph import FxGraph, op_name
+from ..prims import ATEN_PRNG
 from ..schedule import ExecutionPlan
 from .base import (
     Lowering,
@@ -59,6 +61,22 @@ def _as_leaf(v: Any, grad: bool) -> Any:
     return pytree.tree_map(
         lambda t: t.detach().requires_grad_(grad and t.is_floating_point())
         if isinstance(t, torch.Tensor) else t, v)
+
+
+def _rng_state(devices: Sequence[int]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    return torch.get_rng_state(), [torch.cuda.get_rng_state(d) for d in devices]
+
+
+@contextlib.contextmanager
+def _rng_restored(state: Tuple[torch.Tensor, List[torch.Tensor]],
+                  devices: Sequence[int]) -> Iterator[None]:
+    """Run with the generators set to ``state``; the global state is left as
+    it was on entry (``torch.utils.checkpoint``'s ``preserve_rng_state``)."""
+    with torch.random.fork_rng(devices=devices):
+        torch.set_rng_state(state[0])
+        for d, s in zip(devices, state[1]):
+            torch.cuda.set_rng_state(s, d)
+        yield
 
 
 def _link(progs: List[SegmentProgram], is_final: Callable[[Any], bool]) -> List[SegmentProgram]:
@@ -148,13 +166,19 @@ def interpret(
     final: Sequence[Any],
     final_fn: Callable[..., torch.Tensor],
     track_live: bool = False,
+    untracked: Set[Any] = frozenset(),
+    draws: Callable[[Any], bool] = lambda k: True,
 ) -> Tuple[torch.Tensor, Dict[Any, List[Optional[torch.Tensor]]], List[Tuple[str, int]]]:
     """The canonical strategy over segment programs.
 
     ``evaluate(key, get)`` computes a key's value from the values of
     ``reads(key)``; ``inputs`` are the graph inputs and parameters by key,
     ``diff`` the keys to differentiate, ``keep`` the keys of cached values,
-    ``final`` the keys ``final_fn`` turns into the loss.  Returns (loss,
+    ``final`` the keys ``final_fn`` turns into the loss, ``untracked`` the
+    keys whose values depend on no differentiated input, which plain
+    autograd does not track (a dropout mask: ``bernoulli`` has no
+    derivative) and the backward treats as constants, ``draws(key)``
+    whether a key may draw from a random generator.  Returns (loss,
     grads of ``diff`` keys as lists aligned with their tensor leaves, live
     trace).
 
@@ -162,6 +186,12 @@ def interpret(
     key in reverse order, each through its own ``torch.autograd.grad``:
     a value read by several keys sums their cotangents in the order plain
     autograd does (latest reader first), so gradients are bitwise equal.
+
+    A key that draws is evaluated again with the generator state it was
+    first evaluated with (saved in the forward), so a recomputed random draw
+    (a dropout mask) gives the forward's bits, as a ``jax.random`` key would
+    in the reference; the global generator state is left as the forward
+    left it.
     """
     live: List[Tuple[str, int]] = []
     input_storages = {t.untyped_storage().data_ptr()
@@ -186,10 +216,25 @@ def interpret(
     def read(k):
         return env[k] if k in env else inputs[k]
 
+    devices = sorted({t.device.index for v in inputs.values() for t in _tensor_leaves(v)
+                      if t.device.type == "cuda"})
+    rng: Dict[Any, Tuple[torch.Tensor, List[torch.Tensor]]] = {}
+
+    def first_eval(k, get):
+        if draws(k):
+            rng[k] = _rng_state(devices)
+        return evaluate(k, get)
+
+    def replay(k, get):
+        if k not in rng:
+            return evaluate(k, get)
+        with _rng_restored(rng[k], devices):
+            return evaluate(k, get)
+
     # ---------------- forward ----------------
     with torch.no_grad():
         for p in progs:
-            local = run_segment(p, evaluate, read)
+            local = run_segment(p, first_eval, read)
             for k in p.owned:
                 if k in keep or k in final:
                     env[k] = local[k]
@@ -223,22 +268,23 @@ def interpret(
     # ---------------- backward ----------------
     for p in reversed(progs):
         with torch.no_grad():  # recompute V_i \ U_k from the caches
-            local = run_segment(p, evaluate, read, have=env)
+            local = run_segment(p, replay, read, have=env)
         snapshot(f"bwd_recompute_seg{p.index}", env, local)
         for k in reversed(p.steps):
             cts = ct.pop(k, None)
             if cts is None:
                 continue
             leaves = {d: _as_leaf(local[d] if d in local else read(d),
-                                  d in diff or d not in inputs)
+                                  d in diff or (d not in inputs and d not in untracked))
                       for d in dict.fromkeys(reads(k))}
             with torch.enable_grad():
-                out = evaluate(k, leaves.__getitem__)
+                out = replay(k, leaves.__getitem__)
             pull(out, cts, leaves)
         del local
         for k in p.owned:  # canonical rule: this segment's values are dead
             env.pop(k, None)
             ct.pop(k, None)
+            rng.pop(k, None)
         snapshot(f"bwd_done_seg{p.index}", env)
     return loss.detach(), grads, live
 
@@ -299,9 +345,15 @@ def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
         flat = carrier.flatten_args(args)
         inputs = dict(zip(placeholders, flat))
         diff = {n for n, t in inputs.items() if t.requires_grad}
+        tracked = set(diff)
+        for n in fxg.gm.graph.nodes:  # autograd's requires_grad, propagated
+            if n.op == "call_function" and any(a in tracked for a in n.all_input_nodes):
+                tracked.add(n)
+        untracked = {n for n in fxg.owner if n not in tracked}
         loss, grads, live = interpret(
             progs, fxg.run_node, lambda n: n.all_input_nodes, inputs, diff, keep,
-            [fxg.output], lambda x: x, track_live=track_live)
+            [fxg.output], lambda x: x, track_live=track_live, untracked=untracked,
+            draws=lambda n: op_name(n.target) in ATEN_PRNG)
         flat_grads = [grads.get(n, [None])[0] for n in inputs]
         flat_grads = [torch.zeros_like(t) if g is None else g
                       for t, g in zip(flat, flat_grads)]

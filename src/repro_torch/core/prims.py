@@ -130,6 +130,22 @@ FLASH_OP = "repro_torch::flash_attention"
 #: the flash-attention op.
 ATEN_HEAVY = frozenset({"mm", "bmm", "addmm", "convolution", FLASH_OP})
 
+#: aten ops that draw from a random generator (the twin of ``PRNG_PRIMS``).
+#: Torch's generators are stateful: a plan that recomputes one of these in
+#: the backward draws fresh numbers unless the lowering restores the state,
+#: so the effect analysis (``repro_torch.analysis.effects``) pins their
+#: storable frontier.  In-place variants are listed too, though a
+#: functionalized trace (``core.fx_graph``) holds only the out-of-place ones.
+ATEN_PRNG = frozenset({
+    "rand", "rand_like", "randn", "randn_like", "randint", "randint_like",
+    "randperm", "bernoulli", "bernoulli_", "native_dropout", "_fused_dropout",
+    "normal", "normal_", "normal_functional", "uniform", "uniform_",
+    "multinomial", "exponential", "exponential_", "geometric", "geometric_",
+    "log_normal", "log_normal_", "cauchy", "cauchy_", "random", "random_",
+    "poisson", "binomial", "_standard_gamma", "_sample_dirichlet",
+    "rrelu_with_noise", "rrelu_with_noise_functional",
+})
+
 #: aten ops whose outputs alias their first input's storage: they fold into
 #: the node of their base (no bytes to store, no work to recompute).
 ATEN_VIEW_OPS = frozenset({

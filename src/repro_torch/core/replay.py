@@ -135,7 +135,7 @@ def hlo_comm_bytes(hlo_text: str) -> float:
     The reference parses XLA's HLO; the port has no HLO to parse.
     """
     raise NotImplementedError(
-        "hlo_comm_bytes is not ported: ROADMAP.md module queue, item 'Analysis'"
+        "hlo_comm_bytes is not ported: ROADMAP.md module queue, item 'Multi-device'"
     )
 
 

@@ -424,16 +424,28 @@ def prewarm_unit_plans(
 def _maybe_verify(g: Graph, res: DPResult, budget: float) -> None:
     """``REPRO_VERIFY_PLANS=1``: statically re-verify the launch plan.
 
-    The reference runs its DP-independent verifier (``repro.analysis``)
-    here; the port's copy of it is not written yet, so asking for it raises
-    instead of skipping the check silently.
+    Runs the DP-independent verifier (``repro_torch.analysis.check_plan``)
+    over the solved lower-set sequence — topology, replay soundness,
+    simulated peak vs. the per-device budget, eq. (1) overhead — and
+    refuses to hand a launcher an unsound schedule.  Off by default: the
+    checks are cheap (linear in segments) but this path sits under sweeps
+    that may call it many times.
+
+    The stronger ``REPRO_VERIFY_PLANS=hlo`` level (the census and drift
+    gate, ``analysis.check_hlo``) applies at the ``plan_function`` front
+    door, where a traced carrier exists to run; the launch chain graphs
+    here have no twin of their own, so any value — ``hlo`` included — runs
+    the static verifier only.
     """
     if not os.environ.get("REPRO_VERIFY_PLANS"):
         return
-    raise NotImplementedError(
-        "plan verification is not ported yet: ROADMAP.md module queue, "
-        "item 'Analysis'"
-    )
+    from repro_torch import analysis
+    from repro_torch.analysis.report import PlanVerificationError
+    from repro_torch.core.schedule import make_plan
+
+    report = analysis.check_plan(g, make_plan(g, res.sequence), budget=budget)
+    if not report.ok:
+        raise PlanVerificationError(str(report))
 
 
 #: modeled per-extra-microbatch fixed cost, as a fraction of the whole

@@ -235,3 +235,34 @@ def test_cuda_planned_attention_relaunches_the_forward_kernel():
     assert c1["flash_fwd"] - c0["flash_fwd"] == len(recomputed)
     assert c1["flash_bwd_dq"] == c0["flash_bwd_dq"] == len(flash)
     assert c1["flash_bwd_dkv"] == c0["flash_bwd_dkv"] == len(flash)
+
+
+@pytest.mark.cuda
+def test_cuda_drift_gate_is_ok_on_a_planned_mlp():
+    """The memory-drift gate on the card (``analysis.census``): a small MLP
+    planned at the exact minimal budget needs no more device bytes beyond
+    its arguments and outputs than the plan's analytic peak allows
+    (``DRIFT_REL`` and ``DRIFT_ABS_SLACK``), and no more than plain
+    autograd; the heavy-op census is exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the allocator's statistics are the card's")
+    core = importlib.import_module("repro_torch.core")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    census = importlib.import_module("repro_torch.analysis.census")
+
+    def mlp(params, x):
+        h = x
+        for w in params:
+            h = torch.tanh(h @ w)
+        return torch.sum(h * h)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = [torch.randn(256, 256, device="cuda", generator=g) * 0.06 for _ in range(8)]
+    x = torch.randn(16, 256, device="cuda", generator=g)
+    carrier = lowering.TracedCarrier.trace(mlp, (params, x))
+    plan = core.Planner(cache=core.PlanCache()).plan(carrier.to_graph(), None, "approx_dp").plan
+    res = census.analyze_hlo(carrier, plan, args=(params, x))
+    assert res.report.ok, str(res.report)
+    assert res.drift["drift_status"] == "ok", res.drift
+    assert res.drift["temp_bytes"] <= res.drift["vanilla_temp_bytes"]
+    assert res.census.extra == res.census.plan_recompute > 0

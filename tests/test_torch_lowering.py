@@ -17,11 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-
+from repro_torch.analysis.census import CountOps, unpacked_recompute  # noqa: E402
 from repro_torch.core import PlanCache, Planner, simulate  # noqa: E402
 from repro_torch.core.blockgraph import Block, BlockGraph  # noqa: E402
-from repro_torch.core.fx_graph import op_name  # noqa: E402
 from repro_torch.core.lowering import (  # noqa: E402
     available_backends,
     get_lowering,
@@ -30,8 +28,6 @@ from repro_torch.core.lowering import (  # noqa: E402
     vanilla_value_and_grad,
 )
 from repro_torch.core.lowering.carriers import BlockGraphCarrier, TracedCarrier  # noqa: E402
-from repro_torch.core.lowering.interpreter import run_segment, traced_programs  # noqa: E402
-from repro_torch.core.prims import ATEN_KINDS, ATEN_VIEW_OPS  # noqa: E402
 
 D = 8
 SEEDS = [(0, 4), (3, 5), (17, 6), (123, 7), (4242, 9)]
@@ -50,20 +46,6 @@ def plain_value_and_grad(fn, params, *rest):
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-class CountOps(TorchDispatchMode):
-    """Counts the allocating aten ops dispatched, by the reference's kind."""
-
-    def __init__(self):
-        super().__init__()
-        self.counts = collections.Counter()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = op_name(func)
-        if name not in ATEN_VIEW_OPS:
-            self.counts[ATEN_KINDS.get(name, name)] += 1
-        return func(*args, **(kwargs or {}))
-
-
 def extra_ops(planned, vanilla, args):
     """Ops the planned twin dispatches beyond the vanilla run, by kind."""
     planned(*args)  # trace and plan outside the count
@@ -78,28 +60,10 @@ def extra_ops(planned, vanilla, args):
 
 def expected_recompute(carrier, plan, args):
     """The plan's recomputed nodes, by kind, in the checkpoint regions the
-    backward unpacks.  A region recomputes when the backward unpacks a
-    tensor that one of its ops saved; a region whose ops save nothing (a
-    lone loss reduction) is never unpacked, and nothing of it reruns.  The
-    ops that save are found by running the function plainly, segment by
-    segment, under ``saved_tensors_hooks``."""
-    fxg, g = carrier.fx, carrier.to_graph()
-    env = dict(zip([n for n in fxg.gm.graph.nodes if n.op == "placeholder"],
-                   carrier.flatten_args(args)))
-    saved = [0]
-
-    def pack(t):
-        saved[0] += 1
-        return t
-
-    out = collections.Counter()
-    for prog, seg in zip(traced_programs(fxg, plan), plan.segments):
-        saved[0] = 0
-        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-            env.update(run_segment(prog, lambda n, get: fxg.run_node(n, get), env.__getitem__))
-        if seg.recompute and saved[0]:
-            out.update(g.nodes[v].kind for v in seg.recompute)
-    return dict(out)
+    backward unpacks (``analysis.census.unpacked_recompute``)."""
+    g = carrier.to_graph()
+    return dict(collections.Counter(
+        g.nodes[v].kind for v in unpacked_recompute(carrier, plan, args)))
 
 
 # ---------------------------------------------------------------------------

@@ -177,9 +177,10 @@ def test_changed_structure_retraces(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh={"data": 8}), dict(analyze_effects=True), dict(verify=True),
-    dict(verify_hlo=True), dict(cost_model="compiled"), dict(donate=True),
+    dict(mesh={"data": 8}), dict(in_shardings=[None, None]),
+    dict(cost_model="compiled"), dict(donate=True),
     dict(strategies=("store", "recompute", "offload")),
+    dict(strategies=("store", "recompute", "quantize")),
 ])
 def test_what_is_not_ported_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
