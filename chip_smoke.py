@@ -73,6 +73,7 @@ Needs one CUDA card; exits non-zero without one, and outside a checkout.
 
 from __future__ import annotations
 
+import collections
 import importlib
 import json
 import math
@@ -96,6 +97,17 @@ TEACHER_TOKENS = 128
 # the share of positions whose greedy token agrees
 TEACHER_F32_TOL = 1e-3
 TEACHER_BF16_MAX, TEACHER_BF16_MEAN, TEACHER_BF16_AGREE = 0.5, 0.05, 0.8
+# the planned phase's workload under storage strategies: the reference's
+# documented bound for quantized plans (tests/test_strategies.py), relative
+# on the loss and relative l2 on the grads
+QUANT_BOUND = 5e-2
+# the checkpoint phase's depth (full width): ~0.42e9 parameters, ~5 GB a
+# checkpoint with the AdamW moments
+CKPT_UNITS = 2
+# the residual sizes whose pinned host <-> card bandwidth phase costs times:
+# a bf16 d_ff activation of the planned workload (2 x 1024 x 6912) and the
+# f32 log-softmax of its loss head (2 x 1024 x 50304)
+BANDWIDTH_BYTES = (2 * 1024 * 6912 * 2, 2 * 1024 * 50304 * 4)
 # (name, B, H, KV, Sq, Sk, D, dtype name); the first is the training path's shape
 KERNEL_CASES = [
     ("path", 2, 32, 32, 1024, 1024, 80, "bfloat16"),
@@ -669,11 +681,11 @@ def phase_trade(state):
     check(peak1 < peak0, "planned run did not lower the measured peak")
 
 
-def planned_setup():
-    """The front door's workload (phases planned and analysis): stablelm-3b
-    at full width, ``PLANNED_UNITS`` units, batch 2 x seq 1024, weights from
-    seed 0 on the card; returns the model, the data stream, batch 0, the
-    loss, its functional form and its parameters."""
+def planned_setup(n: int = PLANNED_UNITS):
+    """The front door's workload (phases planned, analysis, strategies and
+    costs): stablelm-3b at full width, ``n`` units, batch 2 x seq 1024,
+    weights from seed 0 on the card; returns the model, the data stream,
+    batch 0, the loss, its functional form and its parameters."""
     import dataclasses
 
     import torch
@@ -683,7 +695,6 @@ def planned_setup():
     data = importlib.import_module("repro_torch.data")
     train = importlib.import_module("repro_torch.train")
     dev = torch.device("cuda")
-    n = PLANNED_UNITS
     cfg = dataclasses.replace(configs.get_config("stablelm-3b"), n_layers=n)
     model = models.build_model(cfg, device=dev,
                                generator=torch.Generator(device=dev).manual_seed(0))
@@ -976,6 +987,410 @@ def phase_analysis(results, state):
     check(proc.returncode == 0, "python -m repro_torch.analysis --traced quickstart --hlo failed")
 
 
+def rel_l2(got, want) -> float:
+    num = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(got, want))
+    den = sum(float((b.float() ** 2).sum()) for b in want)
+    return (num / den) ** 0.5
+
+
+def measured_run(fn, args):
+    """One call of a value-and-grad twin on the card: loss (on the host),
+    grads, peak above the memory allocated before it, the kernels' launches
+    and the host time (ms), the call ending in a synchronize."""
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return loss.cpu(), grads, torch.cuda.max_memory_allocated() - before, dict(fa.LAUNCHES), ms
+
+
+def phase_strategies(results):
+    """Storage strategies and donation on the front door's workload: offload
+    only at its exact minimal budget, quantize only with effects on, both at
+    the recompute-only exact minimal budget against the recompute-only plan
+    there, and ``donate=True``.  The strategy plans are memory-centric: the
+    time-centric strategy DP's Pareto frontier exhausts memory at full width
+    (PERF.md, PR 17)."""
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    core = importlib.import_module("repro_torch.core")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    storage = importlib.import_module("repro_torch.core.lowering.storage")
+    census = importlib.import_module("repro_torch.analysis.census")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, batch, _, step_loss, params = planned_setup()
+    args = (params, batch)
+    planner = core.get_default_planner()
+    carrier = lowering.TracedCarrier.trace(step_loss, args)
+    g = carrier.to_graph()
+    flash = {nd.idx for nd in g.nodes if nd.kind == "flash_attention"}
+    vanilla = lowering.vanilla_traced_value_and_grad(carrier)
+    vanilla(*args)  # warm-up
+    l0, g0, peak0, c0, ms0 = measured_run(vanilla, args)
+    grad_bytes = sum(t.numel() * t.element_size() for t in g0.values())
+    g0 = [g0[k] for k in params]
+    print(f"[strategies] vanilla: loss {l0.item():.8f}, peak above resident state {peak0} B "
+          f"({peak0 - grad_bytes} B without the parameter grads), {ms0:.1f} ms")
+    host = []  # the pinned host copies the offloading twins make
+    host_bytes = storage.host_bytes
+
+    def counted(t, memo=None):
+        out = host_bytes(t, memo)
+        if not any(out is h for h in host):
+            host.append(out)
+        return out
+
+    def plan(tag, **kw):
+        t0 = time.perf_counter()
+        pf = lowering.plan_function(step_loss, planner=planner, **kw)
+        low = pf.lowered_for(*args)
+        s = time.perf_counter() - t0
+        p = low.plan
+        rec = set().union(*(seg.recompute for seg in p.segments))
+        codes = collections.Counter(p.strategy.values())
+        print(f"[strategies] {tag}: traced and planned in {s:.2f} s at "
+              f"{low.report.budget:.6e} B: DP peak {p.peak_memory:.6e} B, overhead "
+              f"{p.overhead:.6g}, {p.num_segments} segments, {len(p.cached)} nodes cached "
+              f"({dict(codes)}), {len(rec)} nodes and {len(flash & rec)} flash nodes "
+              f"recomputed; offloaded node bytes "
+              f"{sum(g.nodes[v].memory for v, c in p.strategy.items() if c == 'offload'):.6e}, "
+              f"quantized node bytes "
+              f"{sum(g.nodes[v].memory for v, c in p.strategy.items() if c == 'quantize'):.6e}")
+        return pf, low, rec
+
+    def timed(tag, pf, low):
+        storage.host_bytes = counted
+        try:
+            pf(*args)  # warm-up: pinned blocks, workspaces
+            host.clear()
+            out = measured_run(pf, args)
+        finally:
+            storage.host_bytes = host_bytes
+        loss, grads, peak, counts, ms = out
+        pinned = sum(h.numel() for h in host)
+        host.clear()
+        print(f"[strategies] {tag}: loss {loss.item():.8f}; peak above resident state {peak} B "
+              f"({peak - grad_bytes} B without the parameter grads; DP peak "
+              f"{low.plan.peak_memory:.6e} B); pinned host bytes {pinned}; {ms:.1f} ms; "
+              f"launches {json.dumps(counts)}")
+        return loss, [grads[k] for k in params], counts, ms, pinned
+
+    def drift(tag, low):
+        """The census and drift record of a strategy plan's twin."""
+        rec = census.analyze_hlo(low.carrier, low.plan, args=args)
+        print(f"[strategies] {tag}: drift record {json.dumps(rec.drift)}; findings "
+              f"{sorted({f.code for f in rec.report.findings})}")
+        check(rec.report.ok and rec.drift.get("drift_status") == "ok",
+              f"the {tag} plan failed the census or the drift gate")
+
+    def bitwise(tag, loss, grads):
+        ok = torch.equal(loss, l0) and all(torch.equal(a, b) for a, b in zip(grads, g0))
+        print(f"[strategies] {tag}: loss and grads bitwise vanilla: {ok}")
+        return ok
+
+    def within_bound(tag, loss, grads):
+        lerr, gerr = abs(loss.item() - l0.item()) / abs(l0.item()), rel_l2(grads, g0)
+        print(f"[strategies] {tag}: loss rel err {lerr:.3e}, grads rel l2 {gerr:.3e} "
+              f"(bound {QUANT_BOUND:g})")
+        return lerr <= QUANT_BOUND and gerr <= QUANT_BOUND
+
+    counts_all = collections.Counter()
+    mc = dict(method="approx_dp", objective="memory_centric")
+    # 1. offload only, at its exact minimal budget
+    pf, low, rec = plan("offload only", strategies=("store", "recompute", "offload"), **mc)
+    check(set(low.plan.strategy.values()) == {"offload"}, "the offload plan offloads nothing")
+    loss, grads, counts, ms, pinned = timed("offload only", pf, low)
+    counts_all.update(counts)
+    check(bitwise("offload only", loss, grads), "the offload plan's loss or grads differ")
+    check(pinned > 0, "the offload plan copied nothing to pinned host memory")
+    check(counts["flash_fwd"] == len(flash) + len(flash & rec),
+          "flash_fwd launches do not add up to the offload plan's recomputed flash nodes")
+    drift("offload only", low)
+    del pf, low, grads
+
+    # 2. quantize only, with effects on: the flash nodes are pinned
+    pf, low, rec = plan("quantize only, effects on",
+                        strategies=("store", "recompute", "quantize"),
+                        analyze_effects=True, verify=True, **mc)
+    quantized = {v for v, c in low.plan.strategy.items() if c == "quantize"}
+    check(bool(quantized), "the quantize plan quantizes nothing")
+    check(not quantized & flash and low.carrier.effects.pins == flash,
+          "a pinned flash node is quantized")
+    loss, grads, counts, ms, _ = timed("quantize only", pf, low)
+    counts_all.update(counts)
+    print(f"[strategies] quantize only: {len(quantized)} nodes quantized, none of the "
+          f"{len(flash)} pinned flash nodes; check_plan ok")
+    check(within_bound("quantize only", loss, grads),
+          "the quantize plan is outside the documented bound")
+    check(counts["flash_fwd"] == len(flash), "a pinned flash node was recomputed")
+    drift("quantize only", low)
+    del pf, low, grads
+
+    # 3. both, at the recompute-only exact minimal budget, against the
+    # recompute-only plan there
+    budget = planner.min_feasible_budget(g, "approx_dp")
+    pf_r, low_r, _ = plan("recompute only", budget=budget, **mc)
+    pf, low, _ = plan("offload + quantize", budget=budget,
+                      strategies=("store", "recompute", "offload", "quantize"), **mc)
+    rec_out = timed("recompute only", pf_r, low_r)
+    out = timed("offload + quantize", pf, low)
+    counts_all.update(out[2])
+    check(bitwise("recompute only", *rec_out[:2]), "the recompute-only plan differs")
+    if "quantize" in low.plan.strategy.values():
+        check(within_bound("offload + quantize", *out[:2]),
+              "the joint plan is outside the documented bound")
+    else:
+        check(bitwise("offload + quantize", *out[:2]), "the joint plan differs")
+    print(f"[strategies] at {budget:.6e} B: recompute only {rec_out[3]:.1f} ms, "
+          f"offload + quantize {out[3]:.1f} ms")
+    del pf, low, pf_r, low_r, out, rec_out
+
+    # 4. donate=True, with the census and drift gate
+    t0 = time.perf_counter()
+    pf = lowering.plan_function(step_loss, donate=True, verify=True, verify_hlo=True,
+                                planner=planner)
+    low = pf.lowered_for(*args)
+    print(f"[strategies] donate: planned and verified in {time.perf_counter() - t0:.2f} s; "
+          f"donate_argnums {low.run.donate_argnums}, {len(low.run.donation_hints)} "
+          f"windows hinted; drift record {json.dumps(low.hlo.drift)}")
+    check(low.hlo.report.ok and low.hlo.drift.get("drift_status") == "ok",
+          "the donated twin failed the drift gate")
+    loss, grads, counts, ms, _ = timed("donate", pf, low)
+    counts_all.update(counts)
+    check(bitwise("donate", loss, grads), "the donated twin's loss or grads differ")
+    for name in fa.KERNELS:
+        results[name]["strategies_launches"] = counts_all[name]
+    del pf, low, grads, g0, params, batch, vanilla, carrier
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_costs(results):
+    """The measured cost profile on the card, the launcher's chain planned
+    with it, ``cost_model="compiled"`` on the front door's workload, and the
+    card's pinned host bandwidth beside the DP's constant."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cm = importlib.import_module("repro_torch.core.cost_model")
+    configs = importlib.import_module("repro_torch.configs")
+    steps = importlib.import_module("repro_torch.launch.steps")
+    mesh = importlib.import_module("repro_torch.launch.mesh")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    core = importlib.import_module("repro_torch.core")
+    strategies = importlib.import_module("repro_torch.core.strategies")
+    costs = importlib.import_module("repro_torch.analysis.costs")
+    graph_digest = importlib.import_module("repro_torch.core.graph").graph_digest
+
+    # 1. the profile, measured once and then read from its file
+    calls = []
+
+    def profiler(device):
+        calls.append(device)
+        return cm.profile_ops(device=device)
+
+    fa.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        prof = cm.load_or_profile(cache_dir=tmp, profiler=profiler, device="cuda")
+        first_s = time.perf_counter() - t0
+        counts = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        again = cm.load_or_profile(cache_dir=tmp, profiler=profiler, device="cuda")
+        second_s = time.perf_counter() - t0
+        files = os.listdir(os.path.join(tmp, "profiles"))
+    print(f"[costs] profile_ops on the card in {first_s:.3f} s: sec_per_flop_matmul "
+          f"{prof.sec_per_flop_matmul:.6e} ({1 / prof.sec_per_flop_matmul / 1e12:.3f} TFLOP/s), "
+          f"sec_per_flop_attention {prof.sec_per_flop_attention:.6e} "
+          f"({1 / prof.sec_per_flop_attention / 1e12:.3f} TFLOP/s), sec_per_byte_elementwise "
+          f"{prof.sec_per_byte_elementwise:.6e} ({1 / prof.sec_per_byte_elementwise / 1e9:.1f} "
+          f"GB/s); key {prof.profile_key()}; launches {json.dumps(counts)}")
+    print(f"[costs] second load_or_profile in {second_s:.4f} s from {files}: equal {again == prof}")
+    check(len(calls) == 1 and again == prof, "the second load_or_profile measured again")
+    check(counts["flash_fwd"] > 0, "profile_ops did not time the flash kernel")
+
+    # 2. the launcher's 32-unit chain, analytic and measured
+    cfg = configs.get_config("stablelm-3b")
+    shape = configs.ShapeConfig("cli", 1024, 2, "train")
+    hbm = mesh.device_hbm_bytes()
+    plans = {}
+    for tag, env in (("analytic", None), ("measured", "1")):
+        if env:
+            os.environ["REPRO_MEASURED_COSTS"] = env
+        t0 = time.perf_counter()
+        try:
+            plans[tag] = steps.segment_plan(cfg, shape, hbm_bytes=hbm, device="cuda")
+        finally:
+            os.environ.pop("REPRO_MEASURED_COSTS", None)
+        print(f"[costs] launcher chain, {tag} costs: planned in {time.perf_counter() - t0:.2f} s")
+    for tag, (sp, res) in plans.items():
+        print(f"[costs] launcher chain ({cfg.n_layers} units), {tag} costs: sizes "
+              f"{list(sp.sizes)} remat {list(sp.remat)} n_micro {sp.n_micro}; DP peak "
+              f"{res.peak_memory:.6e} B, overhead {res.overhead:g}")
+    check(all(res.feasible for _, res in plans.values()), "a launcher chain plan is infeasible")
+
+    # 3. cost_model="compiled" on the front door's workload
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, batch, _, step_loss, params = planned_setup()
+    args = (params, batch)
+    t0 = time.perf_counter()
+    pf = lowering.plan_function(step_loss, cost_model="compiled",
+                                planner=core.get_default_planner())
+    low = pf.lowered_for(*args)
+    plan_s = time.perf_counter() - t0
+    p = low.plan
+    rec = set().union(*(s.recompute for s in p.segments))
+    g = low.carrier.to_graph()  # FLOP priced: the pilot's graph
+    flash = {nd.idx for nd in g.nodes if nd.kind == "flash_attention"}
+    # the second phase again by hand: the graph the plan was made on
+    planner = core.get_default_planner()
+    pilot = planner.plan(g, None, "approx_dp", "time_centric").plan
+    profile = dataclasses.replace(cm.DEFAULT_PROFILE, backend=cm.device_key(torch.device("cuda")),
+                                  jax_version=torch.__version__, source="compiled")
+    seg_costs = costs.extract_segment_costs(low.carrier, pilot)
+    cg = cm.compiled_calibrated_graph(g, pilot, seg_costs, profile)
+    print(f"[costs] compiled: traced, planned twice and re-priced in {plan_s:.2f} s at "
+          f"{low.report.budget:.6e} B: peak {p.peak_memory:.6e} B, overhead {p.overhead:g}, "
+          f"{p.num_segments} segments, {len(rec)} nodes and {len(flash & rec)} flash nodes "
+          f"recomputed; pilot {pilot.num_segments} segments, {len(seg_costs)} segment costs "
+          f"({sum(c['flops'] for c in seg_costs):.6e} FLOP, "
+          f"{sum(c['bytes'] for c in seg_costs):.6e} B); re-priced graph digest "
+          f"{graph_digest(cg)} (FLOP-priced {graph_digest(g)})")
+    check(planner.plan(cg, None, "approx_dp", "time_centric").plan == p,
+          "the compiled plan is not the DP's plan on the re-priced graph")
+    vanilla = lowering.vanilla_traced_value_and_grad(low.carrier)
+    pf(*args)  # warm-up
+    l1, g1, peak1, c1, ms1 = measured_run(pf, args)
+    l0, g0, _, _, ms0 = measured_run(vanilla, args)
+    ok = torch.equal(l0, l1) and all(torch.equal(g1[k], g0[k]) for k in g0)
+    print(f"[costs] compiled: loss {l1.item():.8f}, loss and grads bitwise vanilla {ok}; "
+          f"{ms1:.1f} ms (vanilla {ms0:.1f}); launches {json.dumps(c1)}")
+    check(ok, "the compiled-cost plan's loss or grads differ")
+    check(c1["flash_fwd"] - len(flash) == len(flash & rec),
+          "flash_fwd launches do not add up to the compiled plan's recomputed flash nodes")
+    for name in fa.KERNELS:
+        results[name]["costs_launches"] = counts[name] + c1[name]
+    del pf, low, g0, g1, vanilla
+
+    # 4. the card's pinned host bandwidth beside the DP's constant
+    for nbytes in BANDWIDTH_BYTES:
+        dev_buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        host_buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        d2h = time_ms(lambda: host_buf.copy_(dev_buf, non_blocking=True), iters=10)
+        h2d = time_ms(lambda: dev_buf.copy_(host_buf, non_blocking=True), iters=10)
+        print(f"[costs] pinned copies of {nbytes} B: card to host {d2h:.4f} ms "
+              f"({nbytes / d2h * 1e3:.4e} B/s), host to card {h2d:.4f} ms "
+              f"({nbytes / h2d * 1e3:.4e} B/s); the DP prices "
+              f"{strategies.DEFAULT_HOST_BYTES_PER_SEC:.4e} B/s")
+        del dev_buf, host_buf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_ckpt(results):
+    """Checkpoint/restart of the launcher's Trainer at full width, cut to
+    ``CKPT_UNITS`` units: 4 steps uninterrupted, against 2 steps that
+    checkpoint and a fresh Trainer that restores them and runs 2 more."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    data = importlib.import_module("repro_torch.data")
+    train = importlib.import_module("repro_torch.train")
+    steps = importlib.import_module("repro_torch.launch.steps")
+    mesh = importlib.import_module("repro_torch.launch.mesh")
+    adamw = importlib.import_module("repro_torch.optim.adamw")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get_config("stablelm-3b"), n_layers=CKPT_UNITS)
+    shape = configs.ShapeConfig("cli", 1024, 2, "train")
+    sp, _ = steps.segment_plan(cfg, shape, hbm_bytes=mesh.device_hbm_bytes(dev))
+    stream = data.SyntheticLM(data.DataConfig(cfg.vocab_size, 1024, 2))
+
+    def trainer(ckpt_dir, total):
+        model = models.build_model(cfg, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+        tc = train.TrainConfig(
+            total_steps=total, ckpt_dir=ckpt_dir, ckpt_every=2, log_every=0,
+            optimizer=adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=4))
+        return train.Trainer(lambda m, b: m.loss(b, sp.sizes, sp.remat), model, tc, device=dev)
+
+    def state(tr):
+        return tr.params + tr.opt_state.mu + tr.opt_state.nu
+
+    tmp = tempfile.mkdtemp()
+    try:
+        fa.reset_launch_counts()
+        whole = trainer(None, 4)
+        n_params = sum(p.numel() for p in whole.params)
+        out = whole.run(stream.batch(i) for i in range(4))
+        t0 = time.perf_counter()
+        head_tr = trainer(tmp, 2)
+        head = head_tr.run(stream.batch(i) for i in range(2))
+        head_tr.close()
+        head_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(tmp) for f in fs)
+        del head_tr
+        gc.collect()
+        t0 = time.perf_counter()
+        tail_tr = trainer(tmp, 4)
+        restored = tail_tr.maybe_restore()
+        restore_s, restored_step = time.perf_counter() - t0, tail_tr.step
+        tail = tail_tr.run(stream.batch(i) for i in range(tail_tr.step, 4))
+        tail_tr.close()
+        counts = dict(fa.LAUNCHES)
+        kept = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = head["losses"] + tail["losses"]
+    same = all(torch.equal(a, b) for a, b in zip(state(tail_tr), state(whole)))
+    print(f"[ckpt] {CKPT_UNITS} units at full width, {n_params} parameters; checkpoint "
+          f"of step 2: {size} B on disk; a Trainer built, 2 steps run and saved in "
+          f"{head_s:.2f} s; a fresh Trainer built and restored in {restore_s:.2f} s "
+          f"(restored {restored}, step {restored_step}); directory after the run {kept}")
+    print(f"[ckpt] losses uninterrupted {out['losses']}, restarted {losses}")
+    print(f"[ckpt] losses bitwise {losses == out['losses']}; params and AdamW moments "
+          f"bitwise {same}; step {tail_tr.opt_state.step} vs {whole.opt_state.step}; "
+          f"launches {json.dumps(counts)}")
+    check(restored and restored_step == 2 and losses == out["losses"] and same
+          and tail_tr.opt_state.step == whole.opt_state.step == 4,
+          "the restarted run differs from the uninterrupted one")
+    check(not os.path.exists(tmp), "the checkpoint directory was not removed")
+    for name in fa.KERNELS:
+        results[name]["ckpt_launches"] = counts[name]
+    del whole, tail_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve(results):
     """The serving launcher at full width, then step-by-step decode against
     the full forward on the same tokens."""
@@ -1111,6 +1526,9 @@ def main() -> int:
         ("trade", lambda: phase_trade(state)),
         ("planned", lambda: phase_planned(results)),
         ("analysis", lambda: phase_analysis(results, state)),
+        ("strategies", lambda: phase_strategies(results)),
+        ("costs", lambda: phase_costs(results)),
+        ("ckpt", lambda: phase_ckpt(results)),
         ("serve", lambda: phase_serve(results)),
     ]
     for name, fn in phases:

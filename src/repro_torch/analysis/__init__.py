@@ -21,6 +21,11 @@ Cooperating checkers prove a plan sound before (and as) it runs:
   reference's HLO-text helpers (``hlo_text.py``) have no twin: there is no
   HLO to parse.
 
+``analysis.costs.extract_segment_costs`` prices each plan segment in FLOPs
+(``FlopCounterMode``) and bytes (the trace) for
+``plan_function(cost_model="compiled")``, in place of the reference's
+``cost_analysis()`` of compiled segments.
+
 The ``plan_lint`` CLI (``python -m repro_torch.analysis``) runs the
 checkers over traced functions and emits a JSON report (``--hlo`` adds the
 census and the drift-record artifact).

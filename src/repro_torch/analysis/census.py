@@ -33,9 +33,8 @@ twin really runs, watched as it runs.
 
 What has no twin: the HLO-text helpers (``hlo_text.py``: computation
 splitting, trip counts, ``reduce_precision`` save markers) — there is no
-HLO to parse; and the compiled cost extraction (``extract_segment_costs``),
-whose twin is a measured cost profile (ROADMAP.md module queue, item
-'Measured cost profile').  Finding codes are the reference's without the
+HLO to parse.  The compiled cost extraction (``extract_segment_costs``)
+lives in ``analysis.costs``.  Finding codes are the reference's without the
 ``hlo-`` prefix where they named the HLO.
 
 Entry points: :func:`check_hlo` / :func:`analyze_hlo` for a
@@ -452,14 +451,16 @@ def analyze_hlo(
     abs_slack: float = DRIFT_ABS_SLACK,
     use_vanilla_ceiling: bool = True,
     lowered: Optional[Callable[..., Any]] = None,
+    donate: bool = False,
 ) -> HloAnalysis:
     """Census and drift gate for a ``TracedCarrier`` + plan (the front-door
     hook).
 
-    Lowers the plan through the ``"fx"`` backend (or inspects ``lowered``)
+    Lowers the plan through the ``"fx"`` backend (with ``donate``, as the
+    front door lowers it; or inspects ``lowered``)
     and runs :func:`analyze_twin` on ``args`` (default: :func:`example_args`
-    on the traced device) with the plan's own recompute set and analytic
-    peak.  ``use_vanilla_ceiling=False`` drops the vanilla run: no census
+    on the traced device) with the plan's own recompute set (its quantized
+    nodes included: their ops rerun in the backward) and analytic peak.  ``use_vanilla_ceiling=False`` drops the vanilla run: no census
     baseline and a strict drift gate, which corruption tests want.
 
     What the checks need on the device: the planned twin's own peak (three
@@ -483,12 +484,15 @@ def analyze_hlo(
 
     g = carrier.to_graph()
     args = tuple(args) if args is not None else example_args(carrier)
-    recompute = frozenset(range(g.n)) - plan.cached
+    # a quantized node's op reruns in the backward by design (its readers
+    # replay q and scale; ``core/lowering/fx.py``), as a recomputed one does
+    quantized = frozenset(v for v, c in (plan.strategy or {}).items() if c == "quantize")
+    recompute = (frozenset(range(g.n)) - plan.cached) | quantized
     heavy = frozenset(v for v in recompute if g.nodes[v].kind in HEAVY_NODE_KINDS)
     with _forked_rng(_device_of(args)):
-        unpacked = unpacked_recompute(carrier, plan, args)
+        unpacked = unpacked_recompute(carrier, plan, args) | quantized
     return analyze_twin(
-        lowered if lowered is not None else fx_value_and_grad(carrier, plan),
+        lowered if lowered is not None else fx_value_and_grad(carrier, plan, donate=donate),
         args,
         recompute=recompute,
         owner=carrier.fx.owner,
@@ -511,10 +515,12 @@ def check_hlo(
     abs_slack: float = DRIFT_ABS_SLACK,
     use_vanilla_ceiling: bool = True,
     lowered: Optional[Callable[..., Any]] = None,
+    donate: bool = False,
 ) -> Report:
     """Report-only wrapper over :func:`analyze_hlo` (same contract)."""
     return analyze_hlo(carrier, plan, args=args, rel=rel, abs_slack=abs_slack,
-                       use_vanilla_ceiling=use_vanilla_ceiling, lowered=lowered).report
+                       use_vanilla_ceiling=use_vanilla_ceiling, lowered=lowered,
+                       donate=donate).report
 
 
 __all__: Tuple[str, ...] = (

@@ -1,5 +1,21 @@
-"""Persistence helpers of the port (JSON half only)."""
+"""Checkpointing of the port (``repro/checkpointing`` restated for torch)."""
 
-from .store import atomic_write_json, read_json
+from .store import (
+    AsyncCheckpointer,
+    atomic_write_json,
+    latest_step,
+    read_json,
+    restore,
+    retain,
+    save,
+)
 
-__all__ = ["atomic_write_json", "read_json"]
+__all__ = [
+    "AsyncCheckpointer",
+    "atomic_write_json",
+    "latest_step",
+    "read_json",
+    "restore",
+    "retain",
+    "save",
+]

@@ -17,8 +17,12 @@ Backends (``base.register_lowering``):
   policy keyed by fx node (the trace-anything production path; takes the
   place of the reference's ``"jaxpr"``).
 
-The reference's ``"policy"`` backend is not ported (ROADMAP.md).
-``plan_function`` is the front door.
+Storage-strategy plans (``plan.strategy``: offload to pinned host memory,
+int8 quantization; ``lowering.storage``) are realized by ``"interpreter"``
+and ``"fx"`` on traced functions and by ``"segment"`` on BlockGraphs;
+``"fx"`` and ``"segment"`` take ``donate=True`` (``lowering.donation``).  The reference's
+``"policy"`` backend is not ported (ROADMAP.md).  ``plan_function`` is
+the front door.
 """
 
 from .base import (

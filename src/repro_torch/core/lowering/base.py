@@ -38,11 +38,13 @@ def reject_track_live(backend_name: str) -> None:
     )
 
 
-def reject_strategies(plan: ExecutionPlan) -> None:
-    """The port lowers the paper's binary plans only (store / recompute)."""
-    if plan.strategy:
-        raise not_ported("offload/quantize storage strategies",
-                         "Strategy realization + donation")
+def reject_donate(backend_name: str) -> None:
+    """Shared guard for the backends that hold no residual of their own to
+    release early (the reference: no XLA jit boundary to hint)."""
+    raise ValueError(
+        f"donate=True releases the residuals a lowering holds itself; the "
+        f"{backend_name!r} backend keeps only U_k already (use 'fx' or 'segment')"
+    )
 
 
 def diff_leaves(tree: Any) -> Tuple[List[torch.Tensor], Any]:
@@ -90,6 +92,12 @@ class Lowering(abc.ABC):
 
     ``track_live=True`` (interpreter only) appends a live-byte trace:
     ``f(...) -> (loss, grads, [(tag, bytes), ...])``.
+
+    ``donate=True`` (``"fx"``, ``"segment"``) drops the twin's own
+    references to values that cross segments once no later segment reads
+    them, and attaches ``donate_argnums`` and the per-segment dead-at-peak
+    ``donation_hints`` (see ``lowering.donation``); values and gradients
+    are unchanged.
     """
 
     #: registry name, e.g. "interpreter"
@@ -100,8 +108,8 @@ class Lowering(abc.ABC):
         """Whether this backend can lower plans for ``carrier``."""
 
     @abc.abstractmethod
-    def lower(self, carrier: Any, plan: ExecutionPlan,
-              track_live: bool = False) -> Callable[..., Any]:
+    def lower(self, carrier: Any, plan: ExecutionPlan, track_live: bool = False,
+              donate: bool = False) -> Callable[..., Any]:
         """Lower ``plan`` over ``carrier`` into a value-and-grad callable."""
 
 

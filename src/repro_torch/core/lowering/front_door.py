@@ -26,7 +26,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..schedule import ExecutionPlan
-from .base import InfeasibleBudgetError, not_ported, resolve_backend
+from .base import InfeasibleBudgetError, resolve_backend
 from .carriers import BlockGraphCarrier, TracedCarrier, abstract_signature, reject_mesh
 
 
@@ -67,6 +67,8 @@ class PlannedFunction:
         analyze_effects: bool = False,
         verify: bool = False,
         verify_hlo: bool = False,
+        donate: bool = False,
+        strategies: Any = None,
     ):
         self.fn = fn
         self.budget = budget
@@ -81,7 +83,16 @@ class PlannedFunction:
         self.analyze_effects = analyze_effects
         self.verify = verify
         self.verify_hlo = verify_hlo
+        self.donate = donate
+        self.strategies = strategies
         self._memo: Dict[Tuple, LoweredPlan] = {}
+
+    @property
+    def _trace_cost_model(self) -> str:
+        # "compiled" calibration re-prices the graph after a pilot plan
+        # exists (extract_segment_costs needs segments); the trace itself is
+        # priced analytically by FLOPs and re-priced in lowered_for.
+        return "flops" if self.cost_model == "compiled" else self.cost_model
 
     def _carrier_for(self, args) -> Any:
         fn = self.fn
@@ -96,9 +107,9 @@ class PlannedFunction:
             meta = pytree.tree_map(
                 lambda t: t.to("meta") if isinstance(t, torch.Tensor) else t, args)
             return BlockGraphCarrier(bg=fn, loss_fn=self.loss_fn, params=meta[0],
-                                     inputs=meta[1], cost_model=self.cost_model)
+                                     inputs=meta[1], cost_model=self._trace_cost_model)
         return TracedCarrier.trace(fn, args, argnums=self.argnums,
-                                   cost_model=self.cost_model,
+                                   cost_model=self._trace_cost_model,
                                    analyze_effects=self.analyze_effects)
 
     def lowered_for(self, *args) -> LoweredPlan:
@@ -112,6 +123,17 @@ class PlannedFunction:
         carrier = self._carrier_for(args)
         g = carrier.to_graph()
         pl = self.planner or get_default_planner()
+        if self.strategies is not None:
+            # Joint memory-strategy planning: a planner configured with the
+            # requested strategy set, sharing the base planner's plan cache
+            # and profile, so legacy and strategy plans coexist under
+            # distinct content addresses.
+            from ..planner import Planner
+
+            pl = Planner(cache=pl.cache, profile=pl.profile,
+                         quantize_levels=pl.quantize_levels,
+                         sweep_max_states=pl.sweep_max_states,
+                         strategies=self.strategies)
         report = pl.plan(g, self.budget, self.method, self.objective)
         if report.plan is None:
             hint = ""
@@ -122,6 +144,26 @@ class PlannedFunction:
                 f"no feasible strategy for budget {self.budget!r} "
                 f"({self.method}/{self.objective}){hint}"
             )
+        if self.cost_model == "compiled" and isinstance(carrier, TracedCarrier):
+            # Two-phase calibration: the pilot plan above (FLOP priced)
+            # defines segments; each segment's FLOPs and bytes re-price the
+            # graph (with the "compiled" source hashed into its digest) and
+            # the DP re-runs.
+            from ...analysis.costs import extract_segment_costs
+            from ..cost_model import DEFAULT_PROFILE, compiled_calibrated_graph, device_key
+
+            flat = pytree.tree_leaves(args)
+            dev = flat[0].device if flat else torch.device("cpu")
+            profile = dataclasses.replace(DEFAULT_PROFILE, backend=device_key(dev),
+                                          jax_version=torch.__version__, source="compiled")
+            seg_costs = extract_segment_costs(carrier, report.plan)
+            g = compiled_calibrated_graph(g, report.plan, seg_costs, profile)
+            report = pl.plan(g, self.budget, self.method, self.objective)
+            if report.plan is None:
+                raise InfeasibleBudgetError(
+                    f"budget {self.budget!r} became infeasible after "
+                    "compiled-cost recalibration"
+                )
         env_verify = os.environ.get("REPRO_VERIFY_PLANS", "")
         if self.verify or env_verify:
             from ...analysis import check_plan
@@ -129,7 +171,8 @@ class PlannedFunction:
 
             vrep = check_plan(g, report.plan, budget=self.budget,
                               effects=getattr(carrier, "effects", None),
-                              fx=getattr(carrier, "fx", None))
+                              fx=getattr(carrier, "fx", None),
+                              strategies=getattr(pl, "strategies", None))
             if not vrep.ok:
                 raise PlanVerificationError(str(vrep))
         hlo = None
@@ -137,11 +180,12 @@ class PlannedFunction:
             from ...analysis.census import analyze_hlo
             from ...analysis.report import PlanVerificationError
 
-            hlo = analyze_hlo(carrier, report.plan, args=args)
+            hlo = analyze_hlo(carrier, report.plan, args=args, donate=self.donate)
             if not hlo.report.ok:
                 raise PlanVerificationError(str(hlo.report))
         backend = resolve_backend(self.backend, carrier)
-        run = backend.lower(carrier, report.plan, track_live=self.track_live)
+        run = backend.lower(carrier, report.plan, track_live=self.track_live,
+                            donate=self.donate)
         lowered = LoweredPlan(carrier=carrier, report=report, plan=report.plan,
                               backend=backend.name, run=run, hlo=hlo)
         self._memo[key] = lowered
@@ -223,21 +267,40 @@ def plan_function(
         compiled-HLO checks; ``analysis.census`` says what replaced what).
         Traced carriers only (BlockGraph carriers report ``not-applicable``).
 
+    donate:
+        ``"fx"``/``"segment"``: the twin drops its own references to values
+        that cross segments once no later segment reads them, and carries
+        ``donate_argnums`` (the non-differentiated positional args) and the
+        per-segment dead-at-peak ``donation_hints`` (``lowering.donation``),
+        as the reference's donated twin does (torch has no jit donation).
+        Values and gradients are unchanged.  ``"interpreter"`` rejects it.
+    strategies:
+        Joint memory-strategy planning: a ``core.strategies.StrategyConfig``
+        or a tuple of strategy names drawn from ``{"store", "recompute",
+        "offload", "quantize"}``.  The planner then picks a per-node storage
+        strategy for every cached residual — offloaded nodes cost
+        host-transfer time but zero device bytes; quantized nodes cost codec
+        time and int8+scale bytes — and the lowered twin realizes the
+        assignment (pinned host memory / the ``optim.compression``
+        round-trip; ``core.lowering.storage``).  ``None`` (or a set
+        enabling nothing beyond store+recompute) is the paper's binary
+        planning.
+
     The ``REPRO_VERIFY_PLANS`` environment variable overrides both flags:
     any value enables ``verify``; the value ``"hlo"`` enables ``verify``
     *and* ``verify_hlo``.
 
-    ``mesh``/``in_shardings`` (ROADMAP.md item 'Multi-device'),
-    ``cost_model="compiled"`` (item 'Measured cost profile': its twin is a
-    timed or ``FlopCounterMode`` profile), ``donate`` and offload/quantize
-    ``strategies`` (item 'Strategy realization + donation') raise
+    ``cost_model="compiled"`` selects two-phase planning: a FLOP-priced
+    pilot plan defines segments, each segment's FLOPs and bytes
+    (``analysis.costs``: ``FlopCounterMode`` on fake tensors and the
+    trace's bytes, the twin of XLA's ``cost_analysis()``) re-price the
+    graph, and the DP re-runs on it (its digest carries the ``compiled:``
+    cost source, so such plans never alias flops-priced cache entries).
+
+    ``mesh``/``in_shardings`` (ROADMAP.md item 'Multi-device') raise
     ``NotImplementedError``.
     """
     reject_mesh(mesh, in_shardings)
-    if cost_model == "compiled":
-        raise not_ported("cost_model='compiled'", "Measured cost profile")
-    if donate or strategies is not None:
-        raise not_ported("donate / strategies", "Strategy realization + donation")
     if track_live and backend == "auto":
         backend = "interpreter"
     return PlannedFunction(
@@ -245,4 +308,5 @@ def plan_function(
         objective=objective, cost_model=cost_model, argnums=argnums,
         loss_fn=loss_fn, planner=planner, track_live=track_live,
         analyze_effects=analyze_effects, verify=verify, verify_hlo=verify_hlo,
+        donate=donate, strategies=strategies,
     )

@@ -17,6 +17,19 @@ keys in order from the keys it reads outside itself.
 the storages of the *intermediate forward values* held at each step (graph
 inputs, parameters and views of them excluded, as in §2), which the tests
 hold within the plan's ``peak_memory``.
+
+Strategy plans (``plan.strategy``), traced path: each cached value is held
+by its storage strategy (``storage.Stored``) — an offloaded one in host
+memory, auditing at 0 device bytes; a quantized one as its int8 payload and
+block scales, auditing at their bytes — so the live-byte trace charges
+what the joint DP priced.  Every read (a forward consumer in a later
+segment, a backward recompute) sees the value replayed from storage; a
+view or ``getitem`` of such a node is derived again from its replayed
+base.  The backward recomputes a quantized node inside its own segment
+instead of reading it, as the reference's segment vjp does, so its own
+segment sees its exact value.  The block-granularity path rejects
+strategy plans, as the reference does (use ``"segment"`` for
+BlockGraphs).
 """
 
 from __future__ import annotations
@@ -31,14 +44,18 @@ import torch.utils._pytree as pytree
 from ..fx_graph import FxGraph, op_name
 from ..prims import ATEN_PRNG
 from ..schedule import ExecutionPlan
+from . import storage
 from .base import (
     Lowering,
     blockgraph_value_and_grad,
     grads_like,
     register_lowering,
-    reject_strategies,
+    reject_donate,
 )
 from .carriers import BlockGraphCarrier, TracedCarrier
+
+# a cached view or getitem of a stored node: derived again from its base
+_DERIVED = object()
 
 
 @dataclasses.dataclass
@@ -168,6 +185,9 @@ def interpret(
     track_live: bool = False,
     untracked: Set[Any] = frozenset(),
     draws: Callable[[Any], bool] = lambda k: True,
+    store: Callable[[Any, Any], Any] = lambda k, v: v,
+    load: Callable[[Any, Any, Callable[[Any], Any]], Any] = lambda k, v, read: v,
+    rerun: Callable[[Any], bool] = lambda k: False,
 ) -> Tuple[torch.Tensor, Dict[Any, List[Optional[torch.Tensor]]], List[Tuple[str, int]]]:
     """The canonical strategy over segment programs.
 
@@ -192,6 +212,11 @@ def interpret(
     (a dropout mask) gives the forward's bits, as a ``jax.random`` key would
     in the reference; the global generator state is left as the forward
     left it.
+
+    ``store(key, value)`` is what the forward caches for a key (a
+    ``storage.Stored`` box, or the value), ``load(key, cached, read)`` the
+    value a read replays from it, and ``rerun(key)`` whether the backward
+    recomputes a cached key of its own segment instead of loading it.
     """
     live: List[Tuple[str, int]] = []
     input_storages = {t.untyped_storage().data_ptr()
@@ -202,19 +227,22 @@ def interpret(
             return
         seen = set(input_storages)
         nbytes = 0
-        for store in stores:
-            for v in store.values():
-                for t in _tensor_leaves(v):
-                    s = t.untyped_storage()
-                    if s.data_ptr() not in seen:
-                        seen.add(s.data_ptr())
-                        nbytes += s.nbytes()
+        for values in stores:
+            for v in values.values():
+                for t in pytree.tree_leaves(v):
+                    if isinstance(t, storage.Stored):
+                        nbytes += t.device_bytes()
+                    elif isinstance(t, torch.Tensor):
+                        s = t.untyped_storage()
+                        if s.data_ptr() not in seen:
+                            seen.add(s.data_ptr())
+                            nbytes += s.nbytes()
         live.append((tag, nbytes))
 
     env: Dict[Any, Any] = {}
 
     def read(k):
-        return env[k] if k in env else inputs[k]
+        return load(k, env[k], read) if k in env else inputs[k]
 
     devices = sorted({t.device.index for v in inputs.values() for t in _tensor_leaves(v)
                       if t.device.type == "cuda"})
@@ -236,8 +264,10 @@ def interpret(
         for p in progs:
             local = run_segment(p, first_eval, read)
             for k in p.owned:
-                if k in keep or k in final:
+                if k in final:
                     env[k] = local[k]
+                elif k in keep:
+                    env[k] = store(k, local[k])
             snapshot(f"fwd_seg{p.index}", env)
 
     ct: Dict[Any, List[Optional[torch.Tensor]]] = {}
@@ -260,7 +290,7 @@ def interpret(
             acc = dest.setdefault(k, [None] * len(_tensor_leaves(leaves[k])))
             acc[i] = g if acc[i] is None else acc[i] + g
 
-    leaves = {k: _as_leaf(env[k], True) for k in final}
+    leaves = {k: _as_leaf(read(k), True) for k in final}
     with torch.enable_grad():
         loss = final_fn(*leaves.values())
     pull(loss, [torch.ones_like(loss)], leaves)
@@ -268,7 +298,9 @@ def interpret(
     # ---------------- backward ----------------
     for p in reversed(progs):
         with torch.no_grad():  # recompute V_i \ U_k from the caches
-            local = run_segment(p, replay, read, have=env)
+            have = {k: read(k) for k in p.owned if k in env and not rerun(k)}
+            local = run_segment(p, replay, read, have=have)
+            del have
         snapshot(f"bwd_recompute_seg{p.index}", env, local)
         for k in reversed(p.steps):
             cts = ct.pop(k, None)
@@ -340,6 +372,26 @@ def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
     progs = traced_programs(fxg, plan)
     keep = {n for n, v in fxg.owner.items() if v is not None and v in plan.cached}
     placeholders = [n for n in fxg.gm.graph.nodes if n.op == "placeholder"]
+    strategy = plan.strategy or {}
+
+    def code_of(n):
+        return strategy.get(fxg.owner.get(n))
+
+    def store(n, val):
+        code = code_of(n)
+        if code is None:
+            return val
+        if fxg.nodes[fxg.owner[n]] is not n:
+            return _DERIVED  # a view or getitem of the stored node
+        if code == storage.OFFLOAD:
+            return pytree.tree_map_only(torch.Tensor, storage.offload, val)
+        return pytree.tree_map_only(
+            torch.Tensor, lambda t: storage.compressed(t) if storage.quantizable(t) else t, val)
+
+    def load(n, val, read):
+        if val is _DERIVED:
+            return fxg.run_node(n, read)
+        return storage.load(val)
 
     def run(*args):
         flat = carrier.flatten_args(args)
@@ -353,7 +405,8 @@ def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
         loss, grads, live = interpret(
             progs, fxg.run_node, lambda n: n.all_input_nodes, inputs, diff, keep,
             [fxg.output], lambda x: x, track_live=track_live, untracked=untracked,
-            draws=lambda n: op_name(n.target) in ATEN_PRNG)
+            draws=lambda n: op_name(n.target) in ATEN_PRNG, store=store, load=load,
+            rerun=lambda n: code_of(n) == storage.QUANTIZE)
         flat_grads = [grads.get(n, [None])[0] for n in inputs]
         flat_grads = [torch.zeros_like(t) if g is None else g
                       for t, g in zip(flat, flat_grads)]
@@ -387,9 +440,17 @@ class InterpreterLowering(Lowering):
     def supports(self, carrier) -> bool:
         return isinstance(carrier, (BlockGraphCarrier, TracedCarrier))
 
-    def lower(self, carrier, plan: ExecutionPlan, track_live: bool = False):
-        reject_strategies(plan)
+    def lower(self, carrier, plan: ExecutionPlan, track_live: bool = False,
+              donate: bool = False):
+        if donate:
+            reject_donate(self.name)
         if isinstance(carrier, BlockGraphCarrier):
+            if plan.strategy:
+                raise NotImplementedError(
+                    "the block-granularity interpreter does not realize storage "
+                    "strategies; lower strategy plans over BlockGraphs with "
+                    "backend='segment', or trace the function (backend="
+                    "'interpreter'/'fx' on a TracedCarrier)")
             return planned_value_and_grad(carrier.bg, plan, carrier.loss_fn,
                                           track_live=track_live)
         return traced_planned_value_and_grad(carrier, plan, track_live=track_live)

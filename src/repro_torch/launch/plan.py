@@ -333,23 +333,24 @@ class SegmentPlan:
         return len(self.sizes)
 
 
-def _dp_chain_graph(pi: PlanInputs, measured: Optional[bool] = None) -> Graph:
+def _dp_chain_graph(pi: PlanInputs, measured: Optional[bool] = None,
+                    device: str = "cuda") -> Graph:
     """Chain graph with the DP's integer t-axis.
 
     With measured costs (``measured=True`` or ``REPRO_MEASURED_COSTS=1``) the
     interior/boundary nodes are priced by the profiled cost model
     (FLOPs·matmul-rate vs bytes·HBM-rate) before quantization, so the DP
     trades real seconds, not FLOP proxies.  Default stays analytic —
-    profiling costs a one-off timing run per backend.
+    profiling costs a one-off timing run per device.  ``device`` is the
+    device whose profile prices the graph (``cost_model.load_or_profile``).
     """
     raw = chain_graph(pi)
     if measured is None:
         measured = bool(os.environ.get("REPRO_MEASURED_COSTS"))
     if measured:
-        raise NotImplementedError(
-            "measured chain costs are not ported yet: ROADMAP.md module "
-            "queue, item 'Measured cost profile'"
-        )
+        from repro_torch.core.cost_model import calibrated_graph, load_or_profile
+
+        return calibrated_graph(raw, load_or_profile(device=device), levels=32)
     return quantize_times(raw, levels=32)
 
 
@@ -365,6 +366,7 @@ def plan_unit_segments(
     measured_costs: Optional[bool] = None,
     rules: Optional[Rules] = None,
     hbm_bytes: Optional[float] = None,
+    device: str = "cuda",
 ) -> Tuple[SegmentPlan, DPResult]:
     """One-call front door used by the launchers.
 
@@ -374,7 +376,7 @@ def plan_unit_segments(
     """
     pi = plan_inputs(cfg, shape, dp_shards, seq_shards, model_shards, n_micro,
                      hbm_bytes=hbm_bytes, rules=rules)
-    g = _dp_chain_graph(pi, measured_costs)
+    g = _dp_chain_graph(pi, measured_costs, device)
     B = budget if budget is not None else pi.budget
     res = get_default_planner().solve(g, B, "exact_dp", objective)
     if not res.feasible:
@@ -397,6 +399,7 @@ def prewarm_unit_plans(
     measured_costs: Optional[bool] = None,
     rules: Optional[Rules] = None,
     hbm_bytes: Optional[float] = None,
+    device: str = "cuda",
 ) -> Dict[str, bool]:
     """Pre-warm the plan cache for every expected planning signature.
 
@@ -416,7 +419,7 @@ def prewarm_unit_plans(
     for shape in shapes:
         pi = plan_inputs(cfg, shape, dp_shards, seq_shards, model_shards,
                          n_micro, hbm_bytes=hbm_bytes, rules=rules)
-        g = _dp_chain_graph(pi, measured_costs)
+        g = _dp_chain_graph(pi, measured_costs, device)
         out[shape.name] = planner.prewarm(g, "exact_dp", objective)
     return out
 
@@ -465,6 +468,7 @@ def plan_with_microbatching(
     max_micro: int = 16,
     rules: Optional[Rules] = None,
     hbm_bytes: Optional[float] = None,
+    device: str = "cuda",
 ) -> Tuple[SegmentPlan, DPResult]:
     """Pick ``(n_micro, plan)`` jointly by modeled step time.
 
@@ -497,7 +501,7 @@ def plan_with_microbatching(
     while n_micro <= min(max_micro, b_loc):
         pi = plan_inputs(cfg, shape, dp_shards, seq_shards, model_shards,
                          n_micro, hbm_bytes=hbm_bytes, rules=rules)
-        g = _dp_chain_graph(pi)
+        g = _dp_chain_graph(pi, device=device)
         res = planner.solve_grid(g, [pi.budget], "exact_dp", objective)[0]
         if res.feasible:
             oh_frac = res.overhead / g.total_time
@@ -524,5 +528,5 @@ def plan_with_microbatching(
     chosen = best[1] if best is not None else min(max_micro, b_loc)
     return plan_unit_segments(
         cfg, shape, dp_shards, seq_shards, model_shards, chosen,
-        objective=objective, rules=rules, hbm_bytes=hbm_bytes,
+        objective=objective, rules=rules, hbm_bytes=hbm_bytes, device=device,
     )

@@ -33,12 +33,13 @@ def segment_plan(cfg: ModelConfig, shape: ShapeConfig,
                  axis_sizes: Optional[Dict[str, int]] = None,
                  objective: Optional[str] = None,
                  model_shards_override: Optional[int] = None,
-                 hbm_bytes: Optional[float] = None):
+                 hbm_bytes: Optional[float] = None, device: str = "cuda"):
     """The paper's technique, applied: DP-plan the remat segmentation, with
     the smallest feasible gradient-accumulation factor (§5.1's minimal-budget
     protocol turned inside out for a fixed per-device memory).
 
-    ``hbm_bytes=None`` budgets against the CUDA card's memory.
+    ``hbm_bytes=None`` budgets against the CUDA card's memory; ``device``
+    is profiled when ``REPRO_MEASURED_COSTS`` asks for measured costs.
 
     Returns (SegmentPlan, DPResult)."""
     if cfg.remat_method == "none":
@@ -52,5 +53,5 @@ def segment_plan(cfg: ModelConfig, shape: ShapeConfig,
     return plan_with_microbatching(
         cfg, shape, dp, _seq_shards(sizes, shape),
         model_shards=ms, objective=obj, rules=get_rules(),
-        hbm_bytes=hbm_bytes,
+        hbm_bytes=hbm_bytes, device=device,
     )

@@ -9,11 +9,17 @@ raises instead of falling back.  On the CPU the plan budgets the
 reference's per-device memory (16 GiB), so its plan equals the reference
 launcher's.  As in the reference, the plan's ``n_micro`` is printed but
 not applied: the Trainer runs the whole batch at once.
+
+``--ckpt-dir D --ckpt-every N`` checkpoints every N steps and at the end;
+rerunning the same command resumes from the latest committed step.  The
+data stream resumes at that step too (the reference restarts it at batch
+0), so a restarted run continues the interrupted one bitwise.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 
 import torch
 
@@ -48,6 +54,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0, help="weight init seed")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--plan-cache-dir", default=None,
                     help="on-disk recomputation-plan cache (restart = lookup)")
     ap.add_argument("--objective", default="time_centric",
@@ -71,7 +78,8 @@ def main(argv=None):
     sp = res = None
     segment_sizes = segment_remat = None
     if not args.no_plan:
-        sp, res = segment_plan(cfg, shape, objective=args.objective, hbm_bytes=hbm)
+        sp, res = segment_plan(cfg, shape, objective=args.objective, hbm_bytes=hbm,
+                               device=device.type)
         if sp is not None:
             segment_sizes, segment_remat = sp.sizes, sp.remat
             print(f"plan: {sp.n_segments} segments, remat "
@@ -90,6 +98,7 @@ def main(argv=None):
     ))
     tc = TrainConfig(
         total_steps=args.steps,
+        ckpt_every=args.ckpt_every,
         ckpt_dir=args.ckpt_dir,
         plan_cache_dir=args.plan_cache_dir,
         log_every=max(1, args.steps // 20),
@@ -97,7 +106,11 @@ def main(argv=None):
                               total_steps=args.steps),
     )
     tr = Trainer(loss_fn, model, tc, device=device)
-    out = tr.run(iter(data))
+    if tr.maybe_restore():
+        print(f"restored from step {tr.step}")
+    # the stream resumes at the restored step, so a restart continues the run
+    out = tr.run(data.batch(i) for i in itertools.count(tr.step))
+    tr.close()
     print(f"done: step={out['step']} final_loss={out['final_loss']:.4f} "
           f"skipped={out['skipped']} stragglers={out['straggler_steps']}")
     out.update(plan=sp, plan_result=res, n_units=model.n_units)

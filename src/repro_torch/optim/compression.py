@@ -1,0 +1,66 @@
+"""Block-wise int8 codec (port of the codec half of
+``repro/optim/compression.py``).
+
+``compress``/``decompress`` are the reference's symmetric int8 block
+quantization (one f32 scale per 256-element block), in plain torch as the
+reference's are plain jnp.  ``straight_through_roundtrip`` is the value a
+``quantize`` storage strategy replays from storage, with an identity
+gradient.  The error-feedback and ``shard_map`` halves of the reference
+module wait for ROADMAP.md module queue, item 'Multi-device'.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+BLOCK = 256
+
+
+class Compressed(NamedTuple):
+    q: torch.Tensor  # int8 payload, (n_blocks, BLOCK)
+    scale: torch.Tensor  # f32 per-block scales, (n_blocks,)
+    shape: Tuple[int, ...]
+
+
+def compress(x: torch.Tensor) -> Compressed:
+    """f32 cast, zero-pad to whole blocks, scale by max|x|/127 (at least
+    1e-12), round half to even, clip to ±127, store int8."""
+    shape = tuple(x.shape)
+    flat = x.detach().to(torch.float32).reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % BLOCK))
+    blocks = flat.reshape(-1, BLOCK)
+    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return Compressed(q=q, scale=scale[:, 0], shape=shape)
+
+
+def decompress(c: Compressed) -> torch.Tensor:
+    """The f32 values of a :class:`Compressed` in its original shape."""
+    flat = (c.q.to(torch.float32) * c.scale[:, None]).reshape(-1)
+    n = 1
+    for d in c.shape:
+        n *= d
+    return flat[:n].reshape(c.shape)
+
+
+def straight_through_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """int8 round-trip with a straight-through gradient.
+
+    Value is ``decompress(compress(x))`` (the int8+scale storage a
+    ``quantize`` plan strategy keeps on the device); gradient is identity —
+    ``round``/``clamp`` have zero derivative, so without the estimator the
+    cotangent through a quantized residual would vanish.
+    """
+    return roundtrip_with_payload(x)[0]
+
+
+def roundtrip_with_payload(x: torch.Tensor) -> Tuple[torch.Tensor, Compressed]:
+    """``straight_through_roundtrip(x)`` and the :class:`Compressed` it
+    decompresses (what a quantized residual keeps; the lowerings'
+    ``storage`` module)."""
+    c = compress(x.detach())
+    rt = decompress(c).to(x.dtype)
+    return x + (rt - x).detach(), c

@@ -112,6 +112,7 @@ class Engine:
         from repro_torch.launch.plan import prewarm_unit_plans
 
         kw.setdefault("hbm_bytes", planning_hbm_bytes(self.device))
+        kw.setdefault("device", self.device.type)
         return prewarm_unit_plans(self.model.cfg, shapes, dp_shards, seq_shards,
                                   model_shards, **kw)
 

@@ -11,6 +11,11 @@ Ported responsibilities:
 * **straggler mitigation** — per-step wall-times feed an EWMA; steps slower
   than ``straggler_factor``× the EWMA are counted and surfaced through
   ``on_straggler``;
+* **checkpoint/restart** — committed checkpoints every ``ckpt_every``
+  steps and at the end of a run (``checkpointing.AsyncCheckpointer``, the
+  reference's format); ``maybe_restore`` resumes from the latest committed
+  step.  The state is the parameters, the AdamW moments and the step, so a
+  restarted run continues bitwise;
 * **plan cache** — ``plan_cache_dir`` attaches the on-disk recomputation-plan
   store (core.plan_cache), so a restarted job recovers its remat plan as a
   lookup instead of a re-solve;
@@ -22,9 +27,10 @@ Ported responsibilities:
 
 The reference jits a step that donates a private copy of the params; the
 port trains the given module in place (a copy would double 11 GB of f32
-masters at stablelm-3b width).  Checkpoint/restart (``ckpt_dir``), int8
-gradient compression (``compress_grads``) and ``remesh`` raise
-``NotImplementedError`` naming their ROADMAP.md item.
+masters at stablelm-3b width), so a checkpoint is copied to the host
+before the next step updates it.  Int8 gradient compression
+(``compress_grads``) and ``remesh`` raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 from torch import nn
 
+from repro_torch.checkpointing import AsyncCheckpointer, latest_step, restore
 from repro_torch.optim import adamw
 from repro_torch.weights import reference_ndim
 
@@ -51,7 +59,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     total_steps: int = 100
+    ckpt_every: int = 50
     ckpt_dir: Optional[str] = None
+    ckpt_keep: int = 3
     log_every: int = 10
     straggler_factor: float = 3.0
     ewma_alpha: float = 0.1
@@ -101,8 +111,6 @@ class Trainer:
         cfg: TrainConfig,
         device="cuda",
     ):
-        if cfg.ckpt_dir:
-            raise _not_ported("ckpt_dir (checkpoint/restart)", "Checkpointing")
         if cfg.compress_grads:
             raise _not_ported("compress_grads", "Multi-device")
         self.cfg = cfg
@@ -114,6 +122,7 @@ class Trainer:
 
             set_default_cache_dir(cfg.plan_cache_dir)
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [reference_ndim(n, p) >= 2 for n, p in named]
         self.opt_state = adamw.init(self.params)
@@ -128,6 +137,9 @@ class Trainer:
         self.straggler_steps = 0
         self._ewma: Optional[float] = None
         self.on_straggler: Optional[Callable[[int, float, float], None]] = None
+        self._ckpt = (AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.ckpt_keep)
+                      if cfg.ckpt_dir else None)
+        self._saved_step: Optional[int] = None
 
     # ------------------------------------------------------------- step fn
 
@@ -150,6 +162,52 @@ class Trainer:
         return {"loss": loss_f, "grad_norm": gnorm_f, "lr": lr, "ok": ok}
 
     # --------------------------------------------------------- run control
+
+    def state(self) -> Dict[str, Any]:
+        """The checkpointed state, in the reference's tree layout:
+        ``{"params": ..., "opt": {"step", "mu", "nu"}}``, keyed by parameter
+        name."""
+        st = self.opt_state
+        return {"params": dict(zip(self.names, self.params)),
+                "opt": {"step": st.step, "mu": dict(zip(self.names, st.mu)),
+                        "nu": dict(zip(self.names, st.nu))}}
+
+    def maybe_restore(self) -> bool:
+        """Resume from the latest committed checkpoint, if any: parameters
+        and moments are overwritten in place, and the step is restored."""
+        if not self.cfg.ckpt_dir:
+            return False
+        if self._ckpt:
+            self._ckpt.wait()
+        s = latest_step(self.cfg.ckpt_dir)
+        if s is None:
+            return False
+        like = self.state()
+        got = restore(self.cfg.ckpt_dir, s, like)
+        with torch.no_grad():
+            for dst, src in zip(pytree.tree_leaves(like), pytree.tree_leaves(got)):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+        self.opt_state.step = int(got["opt"]["step"])
+        self.step = s
+        return True
+
+    def save(self, wait: bool = False) -> None:
+        """Checkpoint the state at the current step (copied to the host
+        before this returns; written on the checkpointer's thread).  A step
+        already saved is not written again (the final save of a run that
+        ends on a periodic one)."""
+        if not self._ckpt:
+            return
+        if self._saved_step != self.step:
+            self._ckpt.save_async(self.step, self.state())
+            self._saved_step = self.step
+        if wait:
+            self._ckpt.wait()
+
+    def close(self) -> None:
+        if self._ckpt:
+            self._ckpt.close()
 
     def _track_time(self, dt: float) -> None:
         if self._ewma is None:
@@ -195,6 +253,10 @@ class Trainer:
                     f"{dt*1e3:.0f} ms"
                     + (f"  [skipped={self.skipped}]" if self.skipped else "")
                 )
+            if self._ckpt and self.step % c.ckpt_every == 0:
+                self.save()
+        if self._ckpt:
+            self.save(wait=True)
         return {
             "final_loss": losses[-1] if losses else float("nan"),
             "losses": losses,

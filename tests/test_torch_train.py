@@ -174,9 +174,8 @@ def test_nan_guard_skips_the_step():
 
 def test_trainer_raises_for_what_is_not_ported():
     _, _, _, plm = _small()
-    for kw in (dict(ckpt_dir="ckpt"), dict(compress_grads=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(lambda m, b: m.loss(b), plm, TrainConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Trainer(lambda m, b: m.loss(b), plm, TrainConfig(compress_grads=True), device="cpu")
 
 
 def test_launcher_runs_on_cpu_with_the_reference_plan():
