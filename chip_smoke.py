@@ -13,7 +13,8 @@ non-zero and print no result):
              none (the build itself fails if they are not built at the
              registers a thread that their register split assumes);
 2. kernels — each CUDA kernel against its plain PyTorch version on the
-             training shape (B 2, H 32, S 1024, D 80, bf16), a GQA shape, a
+             training shape (B 2, H 32, S 1024, D 80, bf16), granite's
+             (B 2, H 24, KV 8, S 1024, D 64; timed too), a GQA shape, a
              ragged length, rows that see no key (Sq > Sk), the reduced
              config's head (D 16), a bf16 head off the tensor-core route
              (D 40, SIMT) and an f32 shape, and ``ops.flash_attention`` in
@@ -65,7 +66,20 @@ non-zero and print no result):
              finite; then teacher forcing at the same width: 128 tokens
              decoded step by step against ``LM.forward`` (which launches
              ``flash_fwd``), in f32 and in bf16;
-10. result — the ``kernels`` JSON line, the card's name and power limit,
+10. moe    — granite-moe-3b-a800m (MoE, 40 experts top-8, attention D 64
+             with GQA 24:8): the training launcher at full width and depth
+             for 3 steps (launches, peak, the share of routes dropped at
+             capacity), ``plan_function`` on its loss at 4 units (loss and
+             grads bitwise, the extra ``flash_fwd`` launches, a lower
+             peak), the serving launcher as phase serve runs it, and
+             decode against the forward on 8 tokens (no route dropped);
+11. hybrid — zamba2-2.7b (9 units of 6 Mamba2 blocks and the shared
+             attention block on ``concat(h, h0)``): the launcher, the
+             serving launcher, decode against the forward on 128 tokens
+             (the limits hold each block decoded on the forward's inputs,
+             the logits the greedy agreement), and ``plan_function`` on
+             its non-chain graph at 1 unit;
+12. result — the ``kernels`` JSON line, the card's name and power limit,
              and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and outside a checkout.
@@ -92,6 +106,17 @@ PLANNED_UNITS = 8
 SERVE_ARGS = ["--full", "--requests", "16", "--slots", "8", "--max-seq", "2048",
               "--new-tokens", "64"]
 TEACHER_TOKENS = 128
+# phase moe: the front door's depth (full width); decode against the forward
+# on a prefix whose capacity (8 slots an expert) drops no route in the forward
+MOE_PLANNED_UNITS = 4
+# 8 tokens: capacity 8 holds every token, so the forward can drop no route.
+# At 16 tokens (capacity 8, mean load 3.2) the forward dropped 809 of 4096
+# routes on the H100: at random init the tokens' router inputs grow alike
+# with depth and pick the same experts (PERF.md §6, ROADMAP.md §3)
+MOE_TEACHER_TOKENS = 8
+# phase hybrid: the front door's depth (one unit: 6 Mamba2 blocks and the
+# shared block; planning time grows steeply with the node count)
+HYBRID_PLANNED_UNITS = 1
 # step-by-step decode against the full forward at full width (the limits of
 # PERF.md's serving prediction): f32 max |gap|; bf16 max and mean |gap| and
 # the share of positions whose greedy token agrees
@@ -117,7 +142,12 @@ KERNEL_CASES = [
     ("reduced", 2, 4, 4, 64, 64, 16, "bfloat16"),  # the launcher's --reduced head
     ("d40_simt", 1, 4, 2, 136, 136, 40, "bfloat16"),  # D not a multiple of 16: SIMT
     ("f32_decode", 1, 4, 2, 200, 328, 64, "float32"),
+    # granite-moe-3b-a800m's attention on its launcher path: D 64, GQA 24:8
+    ("granite", 2, 24, 8, 1024, 1024, 64, "bfloat16"),
 ]
+# the cases timed beside their bounds and library calls: the dense path's
+# (whose numbers fill the kernels JSON line) and granite's
+TIMED_CASES = ("path", "granite")
 # limits on |kernel - plain| for outputs and gradients, by dtype: absolute,
 # plus for bf16 one unit in the last place of the plain value (2**-7 |ref|),
 # by which two roundings of nearly equal values can differ (a value near 10
@@ -344,10 +374,10 @@ def phase_kernels(results):
         lse_err = (lse - lse_ref).abs().max().item()
         print(f"[kernels] {name:10s} lse max_abs_err {lse_err:.3e} (limit {LSE_TOL:g})")
         check(lse_err <= LSE_TOL, f"flash_fwd lse disagrees on {name}")
-        if ci:
+        if name not in TIMED_CASES:
             continue
 
-        # the training path's shape: times, bounds and the library yardstick
+        # a training path's shape: times, bounds and the library yardstick
         bounds = attention_bounds(B, H, KV, Sq, Sk, D, dtn)
         timed = {
             "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v),
@@ -361,11 +391,19 @@ def phase_kernels(results):
         torch.cuda.synchronize()
         print(f"[kernels] {name:10s} dq bitwise equal over two calls: {torch.equal(dq, dq2)}")
         check(torch.equal(dq, dq2), "flash_bwd_dq is not deterministic")
-        lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-        lib_bwd, lib_bwd_method = sdpa_backward_ms(q, k, v, do)
-        library = {"flash_fwd": (lib_fwd, "scaled_dot_product_attention (forward)"),
-                   "flash_bwd_dq": (lib_bwd, BWD_LIBRARY),
-                   "flash_bwd_dkv": (lib_bwd, BWD_LIBRARY)}
+        lib_fwd, fwd_label = library_forward_ms(q, k, v)
+        if KV == H:
+            lib_bwd, lib_bwd_method = sdpa_backward_ms(q, k, v, do)
+            bwd_label = BWD_LIBRARY
+        else:  # aten's flash backward takes no GQA: k and v repeated to H heads
+            rep = H // KV
+            lib_bwd, lib_bwd_method = sdpa_backward_ms(
+                q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), do)
+            bwd_label = BWD_LIBRARY + f", on k and v repeated to {H} heads"
+        library = {"flash_fwd": (lib_fwd, fwd_label),
+                   "flash_bwd_dq": (lib_bwd, bwd_label),
+                   "flash_bwd_dkv": (lib_bwd, bwd_label)}
+        ms_of = {}
         for kname, (kern, plain) in timed.items():
             bound, bound_by, flops, nbytes = bounds[kname]
             entry = {
@@ -376,33 +414,62 @@ def phase_kernels(results):
                 "bound_by": bound_by,
                 "library_ms": library[kname][0], "library": library[kname][1],
             }
-            results[kname] = entry
+            if name == "path":
+                results[kname] = entry
+            else:  # another model's shape, kept beside the path's entry
+                results[kname][name] = {k: entry[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             launched = time_ms(kern)
-            print(f"[kernels] {kname:14s} {entry['ms']:.4f} ms (host-launched {launched:.4f} ms)"
-                  f"  plain {entry['plain_ms']:.4f} ms"
+            print(f"[kernels] {name:10s} {kname:14s} {entry['ms']:.4f} ms (host-launched "
+                  f"{launched:.4f} ms)  plain {entry['plain_ms']:.4f} ms"
                   f"  bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB)  library {entry['library_ms']}  achieved "
                   f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s, {bound / entry['ms']:.3f} of bound")
-        ours = results["flash_bwd_dq"]["ms"] + results["flash_bwd_dkv"]["ms"]
-        print(f"[kernels] library backward {BWD_LIBRARY}: {lib_bwd:.4f} ms by {lib_bwd_method}; "
-              f"flash_bwd_dq + flash_bwd_dkv {ours:.4f} ms")
-    check_model_layout(len(KERNEL_CASES))
+            ms_of[kname] = entry["ms"]
+        print(f"[kernels] {name:10s} library forward {fwd_label}: {lib_fwd:.4f} ms; library "
+              f"backward {bwd_label}: {lib_bwd:.4f} ms by {lib_bwd_method}; "
+              f"flash_bwd_dq + flash_bwd_dkv {ms_of['flash_bwd_dq'] + ms_of['flash_bwd_dkv']:.4f} ms")
+    for name in TIMED_CASES:
+        check_model_layout(len(KERNEL_CASES), name)
     # cuBLAS keeps a workspace for each stream that ran a matmul, the timing
     # streams' too; drop them so that the launcher's peak memory is its own
     torch._C._cuda_clearCublasWorkspaces()
 
 
-def check_model_layout(seed: int) -> None:
-    """``ops.flash_attention`` at the training shape in the model layout
-    (B, S, H, D), as the launcher calls it: the kernels read and write
-    transposed views, and the backward gets the upstream gradient through
-    autograd.  Held against the plain forward in f32 on the same card
-    tensors, differentiated by autograd."""
+def library_forward_ms(q, k, v):
+    """Device time of ``scaled_dot_product_attention``'s causal forward on
+    the kernels' inputs, with ``enable_gqa`` where k and v have fewer heads
+    (or, where this torch lacks it, on k and v repeated to q's heads).
+    Returns (ms, label)."""
+    import torch.nn.functional as F
+
+    label = "scaled_dot_product_attention (forward)"
+    H, KV = q.shape[1], k.shape[1]
+    if H == KV:
+        return device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)), label
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    except TypeError:
+        rep = H // KV
+        k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        return (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+                label + f", on k and v repeated to {H} heads")
+    return (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True)),
+            label + ", enable_gqa=True")
+
+
+def check_model_layout(seed: int, case: str = "path") -> None:
+    """``ops.flash_attention`` at a training shape (``KERNEL_CASES``'s
+    ``case``) in the model layout (B, S, H, D), as the launcher calls it:
+    the kernels read and write transposed views, and the backward gets the
+    upstream gradient through autograd.  Held against the plain forward in
+    f32 on the same card tensors, differentiated by autograd."""
     import torch
 
     ops = importlib.import_module("repro_torch.kernels.ops")
     ref = importlib.import_module("repro_torch.kernels.ref")
-    _, B, H, KV, S, _, D, dtn = KERNEL_CASES[0]
+    _, B, H, KV, S, _, D, dtn = next(c for c in KERNEL_CASES if c[0] == case)
     dev, dt = torch.device("cuda"), getattr(torch, dtn)
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(B, S, n, D, device=dev, dtype=dt, generator=g)
@@ -416,7 +483,7 @@ def check_model_layout(seed: int) -> None:
     torch.cuda.synchronize()
     for tname, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), (out_ref, *grads_ref)):
         check(a.shape == b.shape and a.dtype == dt, f"model layout {tname}: shape or dtype")
-        compare("bshd_path", tname, a, b, TOL[dtn], RTOL[dtn])
+        compare(f"bshd_{case}", tname, a, b, TOL[dtn], RTOL[dtn])
 
 
 def phase_launcher(results, state):
@@ -561,12 +628,20 @@ def phase_profile(state):
     """One step of the launcher's Trainer, on its plan at full width, under
     ``torch.profiler``: device time by kind of kernel, the kernels that take
     most of the rest, the idle share, and the AdamW update timed alone."""
+    configs = importlib.import_module("repro_torch.configs")
+    sp = state["plan"]
+    profile_step("profile", configs.get_config("stablelm-3b"), sp.sizes, sp.remat)
+
+
+def profile_step(tag: str, cfg, sizes, remat) -> None:
+    """A Trainer step of ``cfg`` at batch 2 x seq 1024 on the plan (sizes,
+    remat), after a warm-up step, under ``torch.profiler``; then the AdamW
+    update timed alone."""
     import gc
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    configs = importlib.import_module("repro_torch.configs")
     models = importlib.import_module("repro_torch.models")
     data = importlib.import_module("repro_torch.data")
     train = importlib.import_module("repro_torch.train")
@@ -575,11 +650,9 @@ def phase_profile(state):
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
-    cfg = configs.get_config("stablelm-3b")
-    sp = state["plan"]
     model = models.build_model(cfg, device=dev,
                                generator=torch.Generator(device=dev).manual_seed(0))
-    tr = train.Trainer(lambda m, b: m.loss(b, sp.sizes, sp.remat), model,
+    tr = train.Trainer(lambda m, b: m.loss(b, sizes, remat), model,
                        train.TrainConfig(total_steps=2, log_every=0), device=dev)
     stream = data.SyntheticLM(data.DataConfig(cfg.vocab_size, 1024, 2))
     tr.train_step(tr._to_device(stream.batch(0)))  # warm-up
@@ -590,15 +663,17 @@ def phase_profile(state):
         tr.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print_device_time("profile", "one step", prof, wall_ms)
+    print_device_time(tag, f"one step of {cfg.name}", prof, wall_ms)
 
     grads = [torch.ones_like(p) for p in tr.params]
     update_ms = time_ms(lambda: adamw.update(tr.cfg.optimizer, grads, tr.opt_state,
                                              tr.params, decay=tr.decay),
                         iters=3, warmup=1)
-    print(f"[profile] AdamW update alone (the Trainer's, {len(grads)} tensors): "
+    print(f"[{tag}] AdamW update alone (the Trainer's, {len(grads)} tensors): "
           f"{update_ms:.3f} ms")
-    del tr, model, grads
+    del tr, model, grads, prof
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def grads_agree(tag: str, got, want) -> bool:
@@ -1391,24 +1466,25 @@ def phase_ckpt(results):
     torch.cuda.empty_cache()
 
 
-def phase_serve(results):
-    """The serving launcher at full width, then step-by-step decode against
-    the full forward on the same tokens."""
-    import dataclasses
+def serve_run(tag: str, args) -> dict:
+    """``repro_torch.launch.serve`` with ``args`` at full width: every decode
+    step's logits checked finite on the device (read once at the end);
+    prints requests, tokens, step times, peak memory, KV-cache bytes and
+    the kernels' launches, and fails unless every request completes with
+    its 64 tokens and no kernel launched (decode is plain PyTorch, as in
+    the reference).  Returns the launcher's result and the launch counts."""
     import gc
 
     import numpy as np
     import torch
+    import torch.utils._pytree as pytree
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     serve = importlib.import_module("repro_torch.launch.serve")
     transformer = importlib.import_module("repro_torch.models.transformer")
-    configs = importlib.import_module("repro_torch.configs")
-    models = importlib.import_module("repro_torch.models")
     gc.collect()
     torch.cuda.empty_cache()
 
-    # every decode step's logits are checked on the device, read once at the end
     finite = []
     decode_step = transformer.LM.decode_step
 
@@ -1421,37 +1497,175 @@ def phase_serve(results):
     fa.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     try:
-        out = serve.main(SERVE_ARGS)
+        out = serve.main(args)
     finally:
         transformer.LM.decode_step = decode_step
     counts = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     eng, done = out["engine"], out["completed"]
-    cache_bytes = sum(t.numel() * t.element_size()
-                      for block in eng.caches.values() for t in block.values())
+    cache_bytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(eng.caches))
     ms = np.array(out["step_seconds"]) * 1e3
     tokens = sum(len(r.output) for r in done)
     all_finite = bool(torch.stack(finite).all())
-    print(f"[serve] {len(done)} requests, {tokens} tokens, {out['steps']} engine steps in "
-          f"{out['seconds']:.4f} s: {tokens / out['seconds']:.1f} output tok/s")
-    print(f"[serve] step ms: first {ms[0]:.4f}, median {np.median(ms):.4f}, p90 "
+    print(f"[{tag}] serve {eng.model.cfg.name}: {len(done)} requests, {tokens} tokens, "
+          f"{out['steps']} engine steps in {out['seconds']:.4f} s: "
+          f"{tokens / out['seconds']:.1f} output tok/s")
+    print(f"[{tag}] step ms: first {ms[0]:.4f}, median {np.median(ms):.4f}, p90 "
           f"{np.percentile(ms, 90):.4f}, min {ms.min():.4f}, max {ms.max():.4f}")
-    print(f"[serve] max_memory_allocated {peak} B ({peak / total:.3f} of {total} B); "
+    print(f"[{tag}] max_memory_allocated {peak} B ({peak / total:.3f} of {total} B); "
           f"KV cache {cache_bytes} B")
-    print(f"[serve] launches {json.dumps(counts)}; all logits finite {all_finite}")
+    print(f"[{tag}] launches {json.dumps(counts)}; all logits finite {all_finite}")
     check(len(done) == 16 and all(len(r.output) == 64 for r in done),
           "a request did not complete with its 64 tokens")
     check(all_finite, "a decode step gave a non-finite logit")
     check(peak < 0.9 * total, "serving took more than 0.9 of the card's memory")
     check(not any(counts.values()), "the engine's plain decode launched a kernel")
+    return out, counts
+
+
+def routes_watched():
+    """Wrap ``models.moe._pack`` so that each dispatch appends its kept-route
+    mask (on the device) to the returned list; returns (list, undo)."""
+    moe = importlib.import_module("repro_torch.models.moe")
+    pack, kept = moe._pack, []
+
+    def watched(*a, **kw):
+        out = pack(*a, **kw)
+        kept.append(out[3])
+        return out
+
+    moe._pack = watched
+    return kept, lambda: setattr(moe, "_pack", pack)
+
+
+def blockwise_gaps(model, toks) -> list:
+    """Each block decoded step by step on the forward's own inputs to that
+    block, against the block's forward: [(block, max |gap|, mean |gap|,
+    max |output|)].  An error of one block does not enter the next, so a
+    model that amplifies rounding with depth is held block by block."""
+    import torch
+
+    layers = importlib.import_module("repro_torch.models.layers")
+    dev, T = toks.device, toks.shape[1]
+    out = []
+    with torch.no_grad():
+        h = layers.embed(model.embedding.embed, toks, model.cfg.activation_dtype)
+        h0, pos = h, torch.arange(T, device=dev)[None]
+        caches = model.init_caches(1, T)
+        units = caches["units"] if model.has_shared else caches
+        for u, unit in enumerate(model.layers):
+            for name in unit.steps:
+                if name is None:
+                    block, cache = model.shared_attn, {k: t[u] for k, t in caches["shared"].items()}
+                    full = block(h, h0, pos)
+                    steps = [block.decode(h[:, t:t + 1], h0[:, t:t + 1], cache,
+                                          torch.tensor([t], device=dev)) for t in range(T)]
+                else:
+                    block, cache = getattr(unit, name), {k: t[u] for k, t in units[name].items()}
+                    full = block(h, pos)
+                    steps = [block.decode(h[:, t:t + 1], cache, torch.tensor([t], device=dev))
+                             for t in range(T)]
+                gap = (torch.cat(steps, 1) - full).abs()
+                out.append((f"unit {u} {name or 'shared_attn'}", gap.max().item(),
+                            gap.mean().item(), full.abs().max().item()))
+                h = full
+    return out
+
+
+def teacher_forcing(tag: str, arch: str, n_tokens: int, blockwise: bool = False,
+                    seed: int = 5) -> None:
+    """Step-by-step decode of ``n_tokens`` tokens against ``LM.forward`` at
+    full width, in f32 and bf16, under the ``TEACHER_*`` limits; the forward
+    launches ``flash_fwd`` once per attention block (once a unit).  An MoE
+    forward must drop no route: decode (one token a step) never does.
+
+    ``blockwise``: the limits hold each block decoded on the forward's own
+    inputs (``blockwise_gaps``), and the f32 logits only to the greedy
+    agreement limit.  For a model that amplifies rounding with depth, as
+    zamba2 does at its random init (ROADMAP.md §3: the reference's own
+    decode at one unit of it differs from its forward by 9.8e-4 in f32;
+    at 9 units the port's f32 gap grows from 6.3e-5 after the first block
+    to 0.81, and bf16's blocks, each within the bf16 limits, compose into
+    logits whose greedy tokens agree at 0.02), the logits' gap measures
+    the amplification, not the decode."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    dev = torch.device("cuda")
+    base = configs.get_config(arch)
+    toks = torch.randint(0, base.vocab_size, (1, n_tokens),
+                         generator=torch.Generator().manual_seed(seed)).to(dev)
+    for dtn in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtn)
+        model = models.build_model(cfg, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+        fa.reset_launch_counts()
+        kept, undo = routes_watched()
+        try:
+            with torch.no_grad():
+                full = model(toks)
+        finally:
+            undo()
+        counts = dict(fa.LAUNCHES)
+        dropped = int(sum((~k).sum() for k in kept)) if kept else 0
+        caches = model.init_caches(1, n_tokens)
+        stepwise = torch.stack([
+            model.decode_step(toks[:, t:t + 1], caches, torch.tensor([t], device=dev))[0][:, 0]
+            for t in range(n_tokens)], 1)
+        gap = (stepwise - full).abs()
+        worst, mean = gap.max().item(), gap.mean().item()
+        agree = (stepwise.argmax(-1) == full.argmax(-1)).float().mean().item()
+        print(f"[{tag}] teacher forcing {arch} {dtn}, {n_tokens} tokens: max |gap| "
+              f"{worst:.4e}, mean |gap| {mean:.4e}, greedy agreement {agree:.4f}; forward "
+              f"launches {json.dumps(counts)}; logits max |x| {full.abs().max().item():.4f}"
+              + (f"; routes dropped by the forward {dropped} of "
+                 f"{sum(k.numel() for k in kept)}" if kept else ""))
+        check(counts["flash_fwd"] == model.n_units, "the forward did not launch flash_fwd "
+              "once a unit")
+        check(dropped == 0, "the forward dropped routes that decode keeps")
+        if blockwise:
+            blocks = blockwise_gaps(model, toks)
+            name, worst, _, size = max(blocks, key=lambda b: b[1])
+            mean = max(b[2] for b in blocks)
+            print(f"[{tag}] block by block, {len(blocks)} blocks: worst max |gap| {worst:.4e} "
+                  f"({name}, max |output| {size:.4e}), worst mean |gap| {mean:.4e}; first "
+                  f"{blocks[0][1]:.4e}, last {blocks[-1][1]:.4e}")
+            if dtn == "float32":
+                check(agree >= TEACHER_BF16_AGREE,
+                      "decode's greedy tokens differ from the forward's")
+        if dtn == "float32":
+            check(worst <= TEACHER_F32_TOL, "f32 decode differs from the forward")
+        else:
+            check(worst <= TEACHER_BF16_MAX and mean <= TEACHER_BF16_MEAN
+                  and (blockwise or agree >= TEACHER_BF16_AGREE),
+                  "bf16 decode differs from the forward")
+        del model, caches, full, stepwise, gap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_serve(results):
+    """The serving launcher at full width, then step-by-step decode against
+    the full forward on the same tokens."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    out, counts = serve_run("serve", SERVE_ARGS)
     for name in fa.KERNELS:
         results[name]["serve_launches"] = counts[name]
 
     # Where a step's time goes: the engine's decode step (its model, caches
     # and last positions) and the logits' copy to the host, under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
+    eng = out["engine"]
     tokens = torch.ones(eng.max_slots, 1, dtype=torch.int64, device=eng.device)
     position = torch.from_numpy(eng.positions).to(eng.device, torch.int64)
     eng.model.decode_step(tokens, eng.caches, position)[0].cpu()  # warm-up
@@ -1462,42 +1676,190 @@ def phase_serve(results):
             eng.model.decode_step(tokens, eng.caches, position)[0].cpu()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     print_device_time("serve", f"one decode step (mean of {n}, profiled)", prof, wall_ms, n)
-    del out, eng, done, finite, prof
+    del out, eng, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    teacher_forcing("serve", "stablelm-3b", TEACHER_TOKENS)
+
+
+def family_launcher(results, tag: str, arch: str):
+    """``repro_torch.launch.train`` at full width and depth of ``arch`` for 3
+    steps (batch 2, seq 1024), budgeted from the card's memory: plan, step
+    times, peak against the card, the kernels' launches (one attention
+    block a unit), finite losses and, for an MoE, the share of routes
+    dropped at capacity.  Returns the plan."""
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    train = importlib.import_module("repro_torch.launch.train")
+    configs = importlib.import_module("repro_torch.configs")
+    moe = importlib.import_module("repro_torch.models.moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    kept, undo = routes_watched()
+    try:
+        out = train.main(["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "1024"])
+    finally:
+        undo()
+    counts = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    sp, res = out["plan"], out["plan_result"]
+    check(sp is not None and res.feasible, "the launcher made no feasible plan")
+    n, steps = out["n_units"], out["step"]
+    recomputed = sum(s for s, r in zip(sp.sizes, sp.remat) if r)
+    print(f"[{tag}] {arch}: {cfg.num_params()} parameters, {n} units; plan: sizes "
+          f"{list(sp.sizes)} remat {list(sp.remat)} n_micro {sp.n_micro}; DP peak "
+          f"{res.peak_memory:.4e} B, overhead {res.overhead:g}")
+    for i, (loss, dt) in enumerate(zip(out["losses"], out["step_seconds"])):
+        print(f"[{tag}] step {i + 1} loss {loss:.6f} time {dt:.4f} s")
+    print(f"[{tag}] max_memory_allocated {peak} B ({peak / total:.3f} of {total} B)")
+    print(f"[{tag}] launches {json.dumps(counts)} over {steps} steps of {n} units "
+          f"({recomputed} recomputed per step)")
+    if cfg.moe is not None:
+        routes = sum(k.numel() for k in kept)
+        dropped = int(sum((~k).sum() for k in kept))
+        T = 2 * 1024
+        print(f"[{tag}] MoE dispatches {len(kept)}: {dropped} of {routes} routes dropped "
+              f"({dropped / routes:.4f}) at capacity {moe.capacity(cfg.moe, T)}, mean load "
+              f"{T * cfg.moe.top_k / cfg.moe.num_experts:g} routes an expert")
+    check(steps == 3 and out["skipped"] == 0, "a launcher step was skipped")
+    check(all(math.isfinite(x) for x in out["losses"]), "non-finite launcher loss")
+    check(counts["flash_fwd"] == steps * (n + recomputed),
+          "flash_fwd launches do not match the units run and recomputed")
+    check(counts["flash_bwd_dq"] == steps * n and counts["flash_bwd_dkv"] == steps * n,
+          "backward kernel launches do not match the units run")
+    check(peak < 0.9 * total, "the launcher took more than 0.9 of the card's memory")
+    for name, c in counts.items():
+        results[name][f"{tag}_launches"] = c
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sp
+
+
+def front_door(results, tag: str, arch: str, n_units: int) -> None:
+    """``plan_function`` on ``arch``'s loss at full width and ``n_units``
+    units, at the exact minimal budget, against plain autograd on the same
+    weights and batch: the loss bitwise; the grads bitwise those of plain
+    autograd run in the plan's node order (``vanilla_traced_value_and_grad``
+    with the plan), and beside plain autograd in the trace's order; one more
+    ``flash_fwd`` per recomputed flash node; a lower peak above resident
+    state."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    data = importlib.import_module("repro_torch.data")
+    train = importlib.import_module("repro_torch.train")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    base = configs.get_config(arch)
+    per_unit = base.hybrid_shared_attn_every or 1
+    cfg = dataclasses.replace(base, n_layers=n_units * per_unit)
+    model = models.build_model(cfg, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    host = data.SyntheticLM(data.DataConfig(cfg.vocab_size, 1024, 2)).batch(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    n = model.n_units
+    step_loss, params = train.functional_loss(lambda m, b: m.loss(b, (n,), (False,)), model)
+
+    t0 = time.perf_counter()
+    planned = lowering.plan_function(step_loss)  # the exact minimal budget
+    lowered = planned.lowered_for(params, batch)
+    plan_s = time.perf_counter() - t0
+    plan, carrier = lowered.plan, lowered.carrier
+    g = carrier.to_graph()
+    flash = {nd.idx for nd in g.nodes if nd.kind == "flash_attention"}
+    rec = set().union(*(s.recompute for s in plan.segments))
+    rec_flash = flash & rec
+    skips = max(len(g.succ[v]) for v in range(g.n))
+    print(f"[{tag}] front door {arch} at {n} unit(s): {g.n} nodes ({len(flash)} "
+          f"flash_attention), widest fan-out {skips}; traced and planned in {plan_s:.2f} s; "
+          f"exact minimal budget {lowered.report.budget:.6e} B, peak {plan.peak_memory:.6e} B, "
+          f"overhead {plan.overhead:g} of {g.total_time:g}, {plan.num_segments} segments, "
+          f"{len(rec)} nodes and {len(rec_flash)} flash nodes recomputed")
+
+    def run(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = fn(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - before
+        return loss.cpu(), grads, peak, dict(fa.LAUNCHES), ms
+
+    planned(params, batch)  # warm-up
+    runs = {"vanilla": run(lowering.vanilla_traced_value_and_grad(carrier)),
+            "plan-order": run(lowering.vanilla_traced_value_and_grad(carrier, plan)),
+            "planned": run(planned)}
+    for name, (loss, _, peak, c, ms) in runs.items():
+        print(f"[{tag}] {name:10s} loss {loss.item():.8f}; peak above resident state {peak} B; "
+              f"launches {json.dumps(c)}; {ms:.1f} ms")
+    (l0, g0, peak0, c0, _), (l2, g2, _, _, _), (l1, g1, peak1, c1, _) = runs.values()
+    ordered = all(torch.equal(g1[k], g2[k]) for k in g2)
+    print(f"[{tag}] loss bitwise {torch.equal(l0, l1)}; grads bitwise plain autograd in the "
+          f"plan's order {ordered}")
+    grads_ok = grads_agree(tag, [g1[k] for k in g0], list(g0.values()))
+    check(torch.equal(l0, l1) and torch.equal(l0, l2), "planned loss differs from vanilla")
+    check(ordered, "planned grads differ from plain autograd in the plan's order")
+    check(grads_ok, "planned grads differ from vanilla beyond rtol 1e-3")
+    check(c1["flash_fwd"] - c0["flash_fwd"] == len(rec_flash),
+          "planned flash_fwd launches do not add up to the plan's recomputed flash nodes")
+    check(c1["flash_bwd_dq"] == c0["flash_bwd_dq"] == len(flash)
+          and c1["flash_bwd_dkv"] == c0["flash_bwd_dkv"] == len(flash),
+          "backward kernel launches differ between the planned and vanilla runs")
+    check(peak1 < peak0, "the planned run did not lower the measured peak")
+    for name in fa.KERNELS:
+        results[name][f"{tag}_planned_launches"] = c1[name]
+    del runs, g0, g1, g2, planned, lowered, carrier, model, params
     gc.collect()
     torch.cuda.empty_cache()
 
-    dev = torch.device("cuda")
-    base = configs.get_config("stablelm-3b")
-    toks = torch.randint(0, base.vocab_size, (1, TEACHER_TOKENS),
-                         generator=torch.Generator().manual_seed(5)).to(dev)
-    for dtn in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(base, dtype=dtn)
-        model = models.build_model(cfg, device=dev,
-                                   generator=torch.Generator(device=dev).manual_seed(0))
-        fa.reset_launch_counts()
-        with torch.no_grad():
-            full = model(toks)
-        counts = dict(fa.LAUNCHES)
-        caches = model.init_caches(1, TEACHER_TOKENS)
-        stepwise = torch.stack([
-            model.decode_step(toks[:, t:t + 1], caches, torch.tensor([t], device=dev))[0][:, 0]
-            for t in range(TEACHER_TOKENS)], 1)
-        gap = (stepwise - full).abs()
-        worst, mean = gap.max().item(), gap.mean().item()
-        agree = (stepwise.argmax(-1) == full.argmax(-1)).float().mean().item()
-        print(f"[serve] teacher forcing {dtn}, {TEACHER_TOKENS} tokens: max |gap| {worst:.4e}, "
-              f"mean |gap| {mean:.4e}, greedy agreement {agree:.4f}; forward launches "
-              f"{json.dumps(counts)}; logits max |x| {full.abs().max().item():.4f}")
-        check(counts["flash_fwd"] == model.n_units, "the forward did not launch flash_fwd "
-              "once a unit")
-        if dtn == "float32":
-            check(worst <= TEACHER_F32_TOL, "f32 decode differs from the forward")
-        else:
-            check(worst <= TEACHER_BF16_MAX and mean <= TEACHER_BF16_MEAN
-                  and agree >= TEACHER_BF16_AGREE, "bf16 decode differs from the forward")
-        del model, caches, full, stepwise, gap
-        gc.collect()
-        torch.cuda.empty_cache()
+
+def phase_moe(results):
+    """granite-moe-3b-a800m: the launcher at full width and depth, the front
+    door at 4 units, the serving launcher, and decode against the forward on
+    an 8-token prefix, whose capacity (8) holds every token."""
+    arch = "granite-moe-3b-a800m"
+    configs = importlib.import_module("repro_torch.configs")
+    sp = family_launcher(results, "moe", arch)
+    profile_step("moe", configs.get_config(arch), sp.sizes, sp.remat)
+    front_door(results, "moe", arch, MOE_PLANNED_UNITS)
+    _, counts = serve_run("moe", ["--arch", arch] + SERVE_ARGS)
+    for name in counts:
+        results[name]["moe_serve_launches"] = counts[name]
+    teacher_forcing("moe", arch, MOE_TEACHER_TOKENS)
+
+
+def phase_hybrid(results):
+    """zamba2-2.7b: the launcher at full width and depth (9 units of 6
+    Mamba2 blocks and the shared block), the serving launcher, teacher
+    forcing, and the front door on its non-chain graph at 1 unit."""
+    arch = "zamba2-2.7b"
+    configs = importlib.import_module("repro_torch.configs")
+    sp = family_launcher(results, "hybrid", arch)
+    profile_step("hybrid", configs.get_config(arch), sp.sizes, sp.remat)
+    _, counts = serve_run("hybrid", ["--arch", arch] + SERVE_ARGS)
+    for name in counts:
+        results[name]["hybrid_serve_launches"] = counts[name]
+    teacher_forcing("hybrid", arch, TEACHER_TOKENS, blockwise=True)
+    front_door(results, "hybrid", arch, HYBRID_PLANNED_UNITS)
 
 
 def main() -> int:
@@ -1530,6 +1892,8 @@ def main() -> int:
         ("costs", lambda: phase_costs(results)),
         ("ckpt", lambda: phase_ckpt(results)),
         ("serve", lambda: phase_serve(results)),
+        ("moe", lambda: phase_moe(results)),
+        ("hybrid", lambda: phase_hybrid(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

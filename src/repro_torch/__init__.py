@@ -2,8 +2,8 @@
 recomputation planning, Kusumoto et al.), beside the JAX reference.
 
 It never imports jax or ``repro``.  The planning core (``core``) is a copy
-of the reference's numpy/stdlib modules; the dense LM, its trainer and
-launcher are written in PyTorch; the flash-attention kernels are CUDA C++
+of the reference's numpy/stdlib modules; the dense, MoE and
+Mamba2-hybrid LMs, their trainer and launchers are written in PyTorch; the flash-attention kernels are CUDA C++
 for Hopper (``kernels/csrc``).  Entry points run on CUDA unless the caller
 asks for the CPU.
 

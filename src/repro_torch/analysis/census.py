@@ -113,7 +113,11 @@ def unpacked_recompute(carrier: Any, plan: ExecutionPlan, args: Sequence[Any]) -
     ``saved_tensors_hooks``.  Each segment's outputs are kept detached
     (requiring grad as they did), so only one segment's autograd graph is
     alive at a time: the run needs about the plan's cached set plus one
-    segment, not plain autograd's peak.
+    segment, not plain autograd's peak.  The pack hook keeps nothing (the
+    graph is never run backward): a hook that returned the tensor itself
+    would tie each op's saved output to its own ``grad_fn``, a cycle
+    through C++ that Python's collector cannot free, and every value the
+    run made would outlive it.
     """
     from ..core.lowering.interpreter import run_segment, traced_programs
 
@@ -124,12 +128,11 @@ def unpacked_recompute(carrier: Any, plan: ExecutionPlan, args: Sequence[Any]) -
 
     def pack(t):
         saved[0] += 1
-        return t
 
     out: set = set()
     for prog, seg in zip(traced_programs(fxg, plan), plan.segments):
         saved[0] = 0
-        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda _: None):
             local = run_segment(prog, lambda n, get: fxg.run_node(n, get), env.__getitem__)
         env.update((k, pytree.tree_map(_detached, local[k])) for k in prog.outs)
         del local

@@ -41,6 +41,7 @@ elementwise = output elements).
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import operator
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -160,11 +161,29 @@ def from_graph_module(gm: fx.GraphModule, cost_model: str = "paper") -> FxGraph:
     return FxGraph(graph=Graph(nodes, edges), nodes=producers, gm=gm, owner=owner)
 
 
+#: True while ``trace_module`` traces.  Model code that places its own
+#: ``torch.utils.checkpoint`` leaves it out then (``models.layers.
+#: checkpointed``): the plan decides what the traced graph recomputes, and
+#: functionalization has no rule for the autograd.Function that a
+#: non-reentrant checkpoint applies in some torch versions (2.11 raises
+#: "NYI: Functionalize rule for custom_function_call").
+_TRACING: contextvars.ContextVar[bool] = contextvars.ContextVar("fx_tracing", default=False)
+
+
+def tracing() -> bool:
+    """Whether ``trace_module`` is tracing in this context."""
+    return _TRACING.get()
+
+
 def trace_module(fn: Callable[..., Any], *example_args: Any) -> fx.GraphModule:
     """``make_fx`` in fake mode (shapes, dtypes and devices only) of the
     functionalized ``fn``."""
     functional = torch.func.functionalize(fn, remove="mutations")
-    return make_fx(functional, tracing_mode="fake")(*example_args)
+    token = _TRACING.set(True)
+    try:
+        return make_fx(functional, tracing_mode="fake")(*example_args)
+    finally:
+        _TRACING.reset(token)
 
 
 def trace(fn: Callable[..., Any], *example_args: Any,

@@ -416,12 +416,31 @@ def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
     return run
 
 
-def vanilla_traced_value_and_grad(carrier: TracedCarrier):
-    """Reference for a traced carrier: plain autograd through ``fn``."""
+def vanilla_traced_value_and_grad(carrier: TracedCarrier,
+                                  plan: Optional[ExecutionPlan] = None):
+    """Reference for a traced carrier: plain autograd through ``fn``.
+
+    With ``plan``: plain autograd through the traced nodes in the plan's
+    segment order, recomputing nothing.  Autograd sums the gradient of a
+    tensor read by several nodes in an order set by when those nodes ran,
+    so where a plan runs nodes in another topological order than the trace
+    (a non-chain graph), this, not ``fn``, is the planned twin's bitwise
+    reference (ROADMAP.md §3)."""
+    if plan is not None:
+        fxg = carrier.fx
+        progs = traced_programs(fxg, plan)
+        placeholders = [n for n in fxg.gm.graph.nodes if n.op == "placeholder"]
 
     def run(*args):
         flat = carrier.flatten_args(args)
-        loss = carrier.fn(*pytree.tree_unflatten(flat, carrier.in_spec))
+        if plan is None:
+            loss = carrier.fn(*pytree.tree_unflatten(flat, carrier.in_spec))
+        else:
+            env = dict(zip(placeholders, flat))
+            for prog in progs:
+                local = run_segment(prog, fxg.run_node, env.__getitem__)
+                env.update((k, local[k]) for k in prog.outs)
+            loss = env[fxg.output]
         return loss.detach(), carrier.grads_out(args, grads_like(loss, flat))
 
     return run

@@ -218,4 +218,7 @@ ATEN_KINDS = {
     "cat": "concatenate",
     "clone": "copy",
     "_to_copy": "convert_element_type",
+    "topk": "top_k",
+    "index": "gather",
+    "index_put": "scatter-add",  # the MoE dispatch (accumulate=True), ``.at[].add``
 }

@@ -2,8 +2,9 @@
 
 Runs the port's stack end to end on one device: config → DP remat plan
 (chain carrier → Planner → segment lowering, budgeted against the card's
-memory) → the dense LM with the flash-attention kernels → the Trainer
-(NaN guard, straggler hooks) over the synthetic pipeline.  The device is
+memory) → the LM (dense, MoE or Mamba2 hybrid) with the flash-attention
+kernels → the Trainer (NaN guard, straggler hooks) over the synthetic
+pipeline.  The device is
 CUDA unless ``--device cpu`` is given; without a card the CUDA default
 raises instead of falling back.  On the CPU the plan budgets the
 reference's per-device memory (16 GiB), so its plan equals the reference

@@ -12,6 +12,18 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.fx_graph import tracing
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``, except
+    while ``core.fx_graph`` traces: the traced graph then holds ``fn``'s ops
+    and the plan decides what they recompute (ROADMAP.md §3)."""
+    if tracing():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def init_normal(shape, scale: float, *, device=None,

@@ -1,0 +1,203 @@
+"""State-space blocks (port of ``repro/models/ssm.py``, the Mamba2 part).
+
+Training runs the *chunked* SSD formulation, quadratic only within a chunk
+and recurrent across chunks; decode runs one step of the recurrence on an
+O(1) state.  As in the reference, the depthwise conv applies to the
+x-branch only.  The reference scans the chunks under ``jax.checkpoint``;
+here each chunk runs under a non-reentrant ``torch.utils.checkpoint``, so
+the backward recomputes a chunk's f32 (B, H, Q, Q) decay and score blocks
+instead of keeping them for every chunk.  While the fx carrier traces, the
+checkpoint is left out (``layers.checkpointed``): the traced graph holds
+each chunk's ops, and the plan decides what they recompute (ROADMAP.md §3).
+
+The xLSTM blocks (``mlstm_*``, ``slstm_*``) wait for ROADMAP.md module
+queue, item 'Other model families'.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from repro_torch.configs.base import SSMConfig
+from .layers import checkpointed, init_normal, rmsnorm
+
+
+# ---------------------------------------------------------------------------
+# Chunked SSD core: h_t = a_t·h_{t-1} + b_t ⊗ x_t
+# ---------------------------------------------------------------------------
+
+
+def _segsum(a_log: torch.Tensor) -> torch.Tensor:
+    """(…, Q) → (…, Q, Q) lower-triangular decay: out[i,j] = Σ_{k=j+1..i} a."""
+    Q = a_log.shape[-1]
+    cs = torch.cumsum(a_log, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=a_log.device).tril()
+    return torch.where(mask, diff, -math.inf)
+
+
+def _ssd_chunk(h: torch.Tensor, xq: torch.Tensor, aq: torch.Tensor, Bq: torch.Tensor,
+               Cq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk: state (B,H,P,N) f32, x (B,Q,H,P), a (B,Q,H) f32, B/C
+    (B,Q,H,N) → (new state, y (B,Q,H,P) in x's dtype)."""
+    xf = xq.float()
+    a_cum = torch.cumsum(aq, dim=1)  # (B,Q,H)
+    # intra-chunk (flash-style blockwise "attention" with decay)
+    L = torch.exp(_segsum(aq.transpose(1, 2)))  # (B,H,Q,Q)
+    G = torch.einsum("bqhn,bshn->bhqs", Cq, Bq).float()
+    Y_diag = torch.einsum("bhqs,bhqs,bshp->bqhp", G, L, xf)
+    # contribution of the carried state
+    Y_off = torch.einsum("bqhn,bhpn,bqh->bqhp", Cq.float(), h, torch.exp(a_cum))
+    # new carried state
+    decay_to_end = torch.exp(a_cum[:, -1:, :] - a_cum)  # (B,Q,H)
+    new_h = h * torch.exp(a_cum[:, -1, :])[:, :, None, None] + torch.einsum(
+        "bqhn,bqh,bqhp->bhpn", Bq.float(), decay_to_end, xf)
+    return new_h, (Y_diag + Y_off).to(xq.dtype)
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P) dt-scaled inputs
+    a_log: torch.Tensor,  # (B, S, H) log decay per step (≤ 0)
+    Bm: torch.Tensor,  # (B, S, H, N)
+    Cm: torch.Tensor,  # (B, S, H, N)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B,S,H,P), final state (B,H,P,N) f32)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
+    a = a_log.float()
+    h = h0 if h0 is not None else x.new_zeros((B, H, P, N), dtype=torch.float32)
+    ys = []
+    for c in range(0, S, Q):
+        h, y = checkpointed(_ssd_chunk, h, x[:, c:c + Q], a[:, c:c + Q], Bm[:, c:c + Q],
+                            Cm[:, c:c + Q])
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def ssd_step(
+    x: torch.Tensor,  # (B, H, P)
+    a_log: torch.Tensor,  # (B, H)
+    Bm: torch.Tensor,  # (B, H, N)
+    Cm: torch.Tensor,  # (B, H, N)
+    h: torch.Tensor,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step of the SSD recurrence."""
+    a = torch.exp(a_log.float())[..., None, None]
+    h = h * a + torch.einsum("bhp,bhn->bhpn", x.float(), Bm.float())
+    y = torch.einsum("bhpn,bhn->bhp", h, Cm.float())
+    return y.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+
+def mamba2_sizes(d_model: int, cfg: SSMConfig, head_p: int = 64) -> Tuple[int, int, int]:
+    d_inner = cfg.expand * d_model
+    H = max(1, d_inner // head_p)
+    P = d_inner // H
+    return d_inner, H, P
+
+
+def mamba2_init(d_model: int, cfg: SSMConfig, *, device=None,
+                generator: Optional[torch.Generator] = None) -> Dict:
+    """The reference's param tree, f32."""
+    d_inner, H, P = mamba2_sizes(d_model, cfg)
+    N = cfg.d_state
+    kw = dict(device=device, generator=generator)
+    proj_out = 2 * d_inner + 2 * N + H  # z, x, B, C, dt
+    return {
+        "norm": {"scale": torch.ones(d_model, device=device)},
+        "in_proj": {"w": init_normal((d_model, proj_out), d_model**-0.5, **kw)},
+        "conv_w": init_normal((cfg.d_conv, d_inner), 0.5, **kw),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),  # A = -exp(A_log)
+        "D_skip": torch.ones(H, device=device),
+        "dt_bias": torch.zeros(H, device=device),
+        "norm_out": {"scale": torch.ones(d_inner, device=device)},
+        "out_proj": {"w": init_normal((d_inner, d_model), d_inner**-0.5, **kw)},
+    }
+
+
+def _split_proj(zxbcdt: torch.Tensor, d_inner: int, N: int, H: int):
+    return torch.split(zxbcdt, [d_inner, d_inner, N, N, H], dim=-1)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, x (B,S,C), w (K,C)."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = pad[:, :S, :] * w[0][None, None, :]
+    for i in range(1, K):
+        out = out + pad[:, i:i + S, :] * w[i][None, None, :]
+    return out
+
+
+def _ssd_inputs(p: Dict, dt: torch.Tensor, xs: torch.Tensor, H: int, P: int):
+    """dt-scaled x, the log decay and dt_soft from the projection's dt."""
+    dt_soft = F.softplus(dt.float() + p["dt_bias"])  # (…, H)
+    a_log = dt_soft * -torch.exp(p["A_log"])  # ≤ 0
+    xh = xs.reshape(*xs.shape[:-1], H, P) * dt_soft[..., None].to(xs.dtype)
+    return xh, a_log
+
+
+def mamba2_apply(p: Dict, x: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
+    """Full-sequence forward.  x (B,S,D) → (B,S,D)."""
+    B, S, D = x.shape
+    dt_ = x.dtype
+    d_inner, H, P = mamba2_sizes(D, cfg)
+    N = cfg.d_state
+    h = rmsnorm(p["norm"]["scale"], x)
+    z, xs, Bm, Cm, dt = _split_proj(h @ p["in_proj"]["w"].to(dt_), d_inner, N, H)
+    xs = _causal_conv(xs, p["conv_w"].to(dt_))
+    xs = F.silu(xs.float()).to(dt_)
+    xh, a_log = _ssd_inputs(p, dt, xs, H, P)
+    Bh = Bm[:, :, None, :].expand(B, S, H, N)
+    Ch = Cm[:, :, None, :].expand(B, S, H, N)
+    y, _ = ssd_chunked(xh, a_log, Bh, Ch, cfg.chunk)
+    y = y + xs.reshape(B, S, H, P) * p["D_skip"][None, None, :, None].to(dt_)
+    y = y.reshape(B, S, d_inner) * F.silu(z.float()).to(dt_)
+    y = rmsnorm(p["norm_out"]["scale"], y)
+    return x + y @ p["out_proj"]["w"].to(dt_)
+
+
+def mamba2_init_state(batch: int, d_model: int, cfg: SSMConfig,
+                      dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    d_inner, H, P = mamba2_sizes(d_model, cfg)
+    return {
+        "ssm": torch.zeros((batch, H, P, cfg.d_state), dtype=torch.float32),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, d_inner), dtype=dtype),
+    }
+
+
+def mamba2_step(p: Dict, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: SSMConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step.  x (B,1,D) → (B,1,D), new state."""
+    B, _, D = x.shape
+    dt_ = x.dtype
+    d_inner, H, P = mamba2_sizes(D, cfg)
+    N = cfg.d_state
+    h = rmsnorm(p["norm"]["scale"], x)
+    z, xs, Bm, Cm, dt = _split_proj((h @ p["in_proj"]["w"].to(dt_))[:, 0], d_inner, N, H)
+
+    conv_buf = torch.cat([state["conv"], xs[:, None, :]], dim=1)
+    xs = torch.einsum("bkc,kc->bc", conv_buf, p["conv_w"].to(dt_))
+    xs = F.silu(xs.float()).to(dt_)
+
+    xh, a_log = _ssd_inputs(p, dt, xs, H, P)
+    Bh = Bm[:, None, :].expand(B, H, N)
+    Ch = Cm[:, None, :].expand(B, H, N)
+    y, new_ssm = ssd_step(xh, a_log, Bh, Ch, state["ssm"])
+    y = y + xs.reshape(B, H, P) * p["D_skip"][None, :, None].to(dt_)
+    y = y.reshape(B, d_inner) * F.silu(z.float()).to(dt_)
+    y = rmsnorm(p["norm_out"]["scale"], y)
+    out = y @ p["out_proj"]["w"].to(dt_)
+    return x + out[:, None, :], {"ssm": new_ssm, "conv": conv_buf[:, 1:, :]}

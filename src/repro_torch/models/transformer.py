@@ -1,11 +1,17 @@
-"""Dense LM from one ModelConfig (port of ``repro/models/transformer.py``,
-the ``attn_mlp`` family).
+"""Language models from one ModelConfig (port of
+``repro/models/transformer.py``): the dense ``attn_mlp``, MoE ``attn_moe``
+and Mamba2-hybrid families.
 
-The layer stack is a chain of repeated *units*.  The reference stacks the
-unit params along a leading axis and runs them through ``lax.scan``; here
-each unit is its own ``nn.Module`` in a ``ModuleList`` (slicing one stacked
-leaf would make autograd build a full-size gradient per unit), and
-``weights.params_from_jax`` unstacks the reference's ``"layers"`` tree.
+The layer stack is a chain of repeated *units* (one block for dense and
+MoE; "k Mamba2 blocks + the shared attention block" for the hybrid).  The
+reference stacks the unit params along a leading axis and runs them
+through ``lax.scan``; here each unit is its own ``nn.Module`` in a
+``ModuleList`` (slicing one stacked leaf would make autograd build a
+full-size gradient per unit), and ``weights.params_from_jax`` unstacks the
+reference's ``"layers"`` tree.  The hybrid's shared block is one top-level
+param set (``shared_attn``), applied once a unit to ``concat(h, h0)``,
+where h0 is the embedding output: the skip edges from the embedding make
+the layer graph non-chain.
 
 The paper's recomputation plan enters as ``segment_sizes``/``segment_remat``:
 units are partitioned into segments and ``scan_over_segments`` runs a
@@ -15,12 +21,14 @@ are exactly the segment inputs.  The reference groups runs of equal
 segments into nested scans to keep its HLO small; eager mode needs no such
 grouping.
 
-Decode (``init_caches``/``decode_step``) keeps the reference's cache tree,
-``{"b{i}_attn_mlp": {"k", "v"}}`` with each leaf (n_units, B, S, KV, D) in
-the activation dtype; each unit decodes on its own slice (a view) and
-writes its new k and v there in place.  The other families (MoE, SSM,
-hybrid, whisper), their decode steps included, wait for ROADMAP.md module
-queue, item 'Other model families': ``Unit`` raises for their blocks.
+Decode (``init_caches``/``decode_step``) keeps the reference's cache tree:
+``{"b{i}_attn_mlp": {"k", "v"}}`` (or ``b{i}_attn_moe``) with each leaf
+(n_units, B, S, KV, D) in the activation dtype; for the hybrid
+``{"units": {"b{i}_mamba": {"ssm", "conv"}}, "shared": {"k", "v"}}``, the
+Mamba2 ``ssm`` state in f32 and ``conv`` in the activation dtype.  Each
+unit decodes on its own slices (views) and writes its new state there in
+place.  The xLSTM blocks (``mlstm``, ``slstm``) wait for ROADMAP.md module
+queue, item 'Other model families': ``Unit`` raises for them.
 """
 
 from __future__ import annotations
@@ -30,11 +38,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from . import attention as attn
-from .layers import embed, init_normal, rmsnorm, softmax_xent, swiglu, unembed
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from .layers import checkpointed, embed, init_normal, rmsnorm, softmax_xent, swiglu, unembed
 
 
 # ---------------------------------------------------------------------------
@@ -67,12 +76,25 @@ def unit_pattern(cfg: ModelConfig) -> Tuple[List[str], int]:
 # ---------------------------------------------------------------------------
 
 
-def _params(**tensors: torch.Tensor) -> nn.Module:
-    """A module that only holds the given tensors as parameters."""
+def _params(**tree) -> nn.Module:
+    """A module that only holds the given tensors as parameters; a nested
+    dict becomes a submodule of the same name."""
     m = nn.Module()
-    for name, t in tensors.items():
-        m.register_parameter(name, nn.Parameter(t))
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            m.add_module(name, _params(**val))
+        else:
+            m.register_parameter(name, nn.Parameter(val))
     return m
+
+
+def _tree(module: nn.Module) -> Dict:
+    """The nested dict of a module's parameters (``_params``'s inverse),
+    read anew each call so that ``functional_call`` shows through."""
+    out: Dict = dict(module.named_parameters(recurse=False))
+    for name, child in module.named_children():
+        out[name] = _tree(child)
+    return out
 
 
 class RMSNorm(nn.Module):
@@ -150,33 +172,124 @@ class AttnMLP(nn.Module):
         return h + self.mlp(self.ln2(h))
 
 
+class AttnMoE(nn.Module):
+    """The ``attn_moe`` block: pre-norm attention, then the pre-norm MoE."""
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = RMSNorm(cfg.d_model, device)
+        self.attn = Attention(cfg, device, generator)
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.moe = _params(**moe_mod.moe_init(cfg.d_model, cfg.moe, device=device,
+                                              generator=generator))
+
+    def _moe(self, h: torch.Tensor) -> torch.Tensor:
+        return h + moe_mod.moe_apply(_tree(self.moe), self.ln2(h), self.cfg.moe)
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return self._moe(h + self.attn(self.ln1(h), positions))
+
+    def decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+               position: torch.Tensor) -> torch.Tensor:
+        return self._moe(h + self.attn.decode(self.ln1(h), cache, position))
+
+
+class Mamba(nn.Module):
+    """The ``mamba`` block: one Mamba2 layer with its residual."""
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__()
+        self.ssm_cfg = cfg.ssm or SSMConfig()
+        self.mamba = _params(**ssm_mod.mamba2_init(cfg.d_model, self.ssm_cfg,
+                                                   device=device, generator=generator))
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return ssm_mod.mamba2_apply(_tree(self.mamba), h, self.ssm_cfg)
+
+    def decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+               position: torch.Tensor) -> torch.Tensor:
+        h, new = ssm_mod.mamba2_step(_tree(self.mamba), h, cache, self.ssm_cfg)
+        for key, t in new.items():
+            cache[key].copy_(t)
+        return h
+
+
+class SharedAttn(nn.Module):
+    """The hybrid's shared-attention block (zamba2): one param set applied
+    once a unit; ``concat(h, h0)`` is projected back to d_model first."""
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__()
+        d = cfg.d_model
+        self.ln = RMSNorm(2 * d, device)
+        self.in_proj = _params(w=init_normal((2 * d, d), (2 * d) ** -0.5, device=device,
+                                             generator=generator))
+        self.attn = Attention(cfg, device, generator)
+        self.ln2 = RMSNorm(d, device)
+        self.mlp = SwiGLU(d, cfg.d_ff, device, generator)
+
+    def _in(self, h: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+        return self.ln(torch.cat([h, h0], dim=-1)) @ self.in_proj.w.to(h.dtype)
+
+    def forward(self, h: torch.Tensor, h0: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        x = self._in(h, h0)
+        x = x + self.attn(x, positions)
+        return h + self.mlp(self.ln2(x))
+
+    def decode(self, h: torch.Tensor, h0: torch.Tensor, cache: Dict[str, torch.Tensor],
+               position: torch.Tensor) -> torch.Tensor:
+        x = self._in(h, h0)
+        x = x + self.attn.decode(x, cache, position)
+        return h + self.mlp(self.ln2(x))
+
+
+BLOCKS = {"attn_mlp": AttnMLP, "attn_moe": AttnMoE, "mamba": Mamba}
+
+
 class Unit(nn.Module):
     """One repeat of the unit pattern; blocks are named ``b{i}_{kind}`` as
-    in the reference's param tree."""
+    in the reference's param tree (the shared block takes no index: it
+    lives on the LM)."""
 
     def __init__(self, kinds: Sequence[str], cfg: ModelConfig, device=None,
                  generator=None):
         super().__init__()
-        self.block_names = []
-        for i, kind in enumerate(kinds):
-            if kind != "attn_mlp":
+        self.steps: List[Optional[str]] = []  # block names; None = the shared block
+        for kind in kinds:
+            if kind == "shared_attn":
+                self.steps.append(None)
+                continue
+            if kind not in BLOCKS:
                 raise NotImplementedError(
                     f"block kind {kind!r} is not ported yet: ROADMAP.md module "
                     "queue, item 'Other model families'"
                 )
-            name = f"b{i}_{kind}"
-            self.add_module(name, AttnMLP(cfg, device, generator))
-            self.block_names.append(name)
+            name = f"b{len(self.block_names)}_{kind}"
+            self.add_module(name, BLOCKS[kind](cfg, device, generator))
+            self.steps.append(name)
 
-    def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        for name in self.block_names:
-            h = getattr(self, name)(h, positions)
+    @property
+    def block_names(self) -> List[str]:
+        return [name for name in self.steps if name is not None]
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor,
+                h0: Optional[torch.Tensor] = None,
+                shared: Optional[SharedAttn] = None) -> torch.Tensor:
+        for name in self.steps:
+            h = shared(h, h0, positions) if name is None else getattr(self, name)(h, positions)
         return h
 
     def decode(self, h: torch.Tensor, caches: Dict[str, Dict[str, torch.Tensor]],
-               position: torch.Tensor) -> torch.Tensor:
-        for name in self.block_names:
-            h = getattr(self, name).decode(h, caches[name], position)
+               position: torch.Tensor, h0: Optional[torch.Tensor] = None,
+               shared: Optional[SharedAttn] = None,
+               shared_cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        for name in self.steps:
+            if name is None:
+                h = shared.decode(h, h0, shared_cache, position)
+            else:
+                h = getattr(self, name).decode(h, caches[name], position)
         return h
 
 
@@ -204,6 +317,8 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = _params(unembed=init_normal(
                 (cfg.vocab_size, cfg.d_model), cfg.d_model**-0.5, **kw))
+        self.has_shared = "shared_attn" in self.pattern
+        self.shared_attn = SharedAttn(cfg, device, generator) if self.has_shared else None
 
     def forward(
         self,
@@ -214,8 +329,9 @@ class LM(nn.Module):
         """tokens (B, S) → f32 logits (B, S, V)."""
         h = embed(self.embedding.embed, tokens, self.cfg.activation_dtype)
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        h0 = h  # the hybrid's skip input, read by every unit
         h = scan_over_segments(
-            h, self.layers, lambda unit, x: unit(x, positions),
+            h, self.layers, lambda unit, x: unit(x, positions, h0, self.shared_attn),
             segment_sizes, segment_remat,
         )
         return self._logits(h)
@@ -236,33 +352,54 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------------ decode
 
-    def init_caches(self, batch: int, max_seq: int) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Zero KV caches for ``batch`` sequences of up to ``max_seq`` tokens,
-        on the model's device: ``{"b{i}_attn_mlp": {"k": t, "v": t}}``, each
-        t (n_units, batch, max_seq, KV, D) in the activation dtype."""
+    def init_caches(self, batch: int, max_seq: int) -> Dict[str, Dict]:
+        """Zero caches for ``batch`` sequences of up to ``max_seq`` tokens, on
+        the model's device, in the reference's tree: each attention block's
+        ``{"k", "v"}``, (n_units, batch, max_seq, KV, D) in the activation
+        dtype; each Mamba2 block's ``{"ssm", "conv"}`` with the unit axis in
+        front; the hybrid's ``{"units": ..., "shared": {"k", "v"}}``."""
         cfg = self.cfg
-        shape = (self.n_units, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        kw = dict(dtype=cfg.activation_dtype, device=self.embedding.embed.device)
-        return {name: {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
-                for name in self.layers[0].block_names}
+        n, dt = self.n_units, cfg.activation_dtype
+        kw = dict(dtype=dt, device=self.embedding.embed.device)
+
+        def kv() -> Dict[str, torch.Tensor]:
+            shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+        units: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name in self.layers[0].block_names:
+            if name.endswith("_mamba"):
+                state = ssm_mod.mamba2_init_state(batch, cfg.d_model,
+                                                  cfg.ssm or SSMConfig(), dt)
+                units[name] = {k: torch.zeros((n, *t.shape), dtype=t.dtype,
+                                              device=kw["device"])
+                               for k, t in state.items()}
+            else:
+                units[name] = kv()
+        return {"units": units, "shared": kv()} if self.has_shared else units
 
     @torch.no_grad()
     def decode_step(
         self,
         tokens: torch.Tensor,
-        caches: Dict[str, Dict[str, torch.Tensor]],
+        caches: Dict[str, Dict],
         position: torch.Tensor,
-    ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
+    ) -> Tuple[torch.Tensor, Dict[str, Dict]]:
         """tokens (B, 1), position (B,) → (f32 logits (B, 1, V), caches).
 
-        Each row's k and v go into the caches at its position, in place; the
-        returned caches are the given ones.
+        Each row's new state (k and v at its position; the Mamba2 states)
+        goes into the caches in place; the returned caches are the given
+        ones.
         """
         h = embed(self.embedding.embed, tokens, self.cfg.activation_dtype)
+        h0 = h
+        unit_caches = caches["units"] if self.has_shared else caches
         for u, unit in enumerate(self.layers):
-            unit_caches = {name: {kv: t[u] for kv, t in c.items()}
-                           for name, c in caches.items()}
-            h = unit.decode(h, unit_caches, position)
+            views = {name: {k: t[u] for k, t in c.items()}
+                     for name, c in unit_caches.items()}
+            shared = ({k: t[u] for k, t in caches["shared"].items()}
+                      if self.has_shared else None)
+            h = unit.decode(h, views, position, h0, self.shared_attn, shared)
         return self._logits(h), caches
 
 
@@ -310,6 +447,6 @@ def scan_over_segments(
                 x = unit_body(unit, x)
             return x
 
-        h = checkpoint(seg_fn, h, use_reentrant=False) if do_remat else seg_fn(h)
+        h = checkpointed(seg_fn, h) if do_remat else seg_fn(h)
         offset += size
     return h

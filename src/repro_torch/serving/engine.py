@@ -11,9 +11,11 @@ continuous batching over the LM's decode step.
 * termination: eos token, ``max_new_tokens``, or a full cache.
 
 The engine runs on its model's device (CUDA unless the model was built on
-the CPU); a step moves only the (slots, V) f32 logits to the host.  The
-reference's sharded decode (``mesh``/``step_shardings``) and
-encoder-decoder serving (``frames``) are not ported and raise.
+the CPU); a step moves only the (slots, V) f32 logits to the host.  It
+serves every family the port's ``LM`` decodes (dense, MoE, Mamba2-hybrid):
+a reused slot's KV and recurrent states are zeroed.  The reference's
+sharded decode (``mesh``/``step_shardings``) and encoder-decoder serving
+(``frames``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core.lowering.base import not_ported
 
@@ -143,10 +146,11 @@ class Engine:
         return req.uid
 
     def _reset_slot(self, slot: int) -> None:
-        """Zero the slot's caches on reuse (units on axis 0, slots on 1)."""
-        for block in self.caches.values():
-            for t in block.values():
-                t[:, slot].zero_()
+        """Zero the slot in every leaf of the cache tree on reuse (units on
+        axis 0, slots on 1): KV is masked by position anyway, but recurrent
+        (Mamba2) states would otherwise leak between requests."""
+        for t in pytree.tree_leaves(self.caches):
+            t[:, slot].zero_()
 
     def _admit(self) -> None:
         for slot in range(self.max_slots):

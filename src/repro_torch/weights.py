@@ -2,7 +2,10 @@
 
 The reference's ``LM.init`` returns a nested dict whose ``"layers"`` leaves
 are stacked along a leading unit axis; the port keeps one module per unit
-(``layers.{i}.…``).  ``params_from_jax`` turns the reference tree, as numpy
+(``layers.{i}.…``).  Leaves outside ``"layers"`` (the embedding, the head,
+the hybrid's one ``shared_attn`` param set) keep their shapes; a stacked
+leaf loses its unit axis (an MoE expert leaf (units, E, D, F) becomes
+rank 3).  ``params_from_jax`` turns the reference tree, as numpy
 arrays, into a state dict for ``LM.load_state_dict``; ``params_to_jax`` is
 its inverse.  The parity tests use both, so the two packages run on the
 same weights.

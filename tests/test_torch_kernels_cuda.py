@@ -150,6 +150,50 @@ def test_cuda_bf16_dq_is_deterministic_at_the_path_shape():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_bf16_kernels_at_the_granite_shape(causal):
+    """granite-moe-3b-a800m's attention on its launcher path: B 2, H 24
+    over 8 kv heads (a group of 3), S 1024, D 64, bf16, on model-layout
+    views; dq bitwise the same over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    shape = (2, 24, 8, 1024, 1024, 64)
+    q, k, v, do = (torch.tensor(x.transpose(0, 2, 1, 3).copy()).to("cuda", torch.bfloat16)
+                   .transpose(1, 2) for x in make(*shape, seed=17))
+    o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = ref.row_delta(o_ref, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, causal=causal)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do, causal=causal)
+    want = [o_ref, ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do, causal=causal),
+            *ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do, causal=causal)]
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2)
+    for a, b in zip((o, dq, dk, dv), want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-2.7b"])
+def test_cuda_reduced_family_launchers_train(arch):
+    """``repro_torch.launch.train --reduced`` of the MoE and the hybrid on
+    the card, in bf16 at head dim 16, through all three kernels: one
+    attention block a unit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.launch.train import main
+
+    fa.reset_launch_counts()
+    out = main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "2", "--seq", "64"])
+    assert out["step"] == 2 and np.isfinite(out["final_loss"])
+    recomputed = sum(s for s, r in zip(out["plan"].sizes, out["plan"].remat) if r)
+    assert fa.LAUNCHES["flash_fwd"] == 2 * (out["n_units"] + recomputed), fa.LAUNCHES
+    assert fa.LAUNCHES["flash_bwd_dq"] == fa.LAUNCHES["flash_bwd_dkv"] == 2 * out["n_units"]
+
+
+@pytest.mark.cuda
 def test_cuda_autograd_function_matches_plain_grads():
     """``ops.flash_attention`` on the card (model layout, kernels in both
     passes) against the same Function on the CPU (plain versions), f32."""
