@@ -14,7 +14,11 @@ non-zero and print no result):
              registers a thread that their register split assumes);
 2. kernels — each CUDA kernel against its plain PyTorch version on the
              training shape (B 2, H 32, S 1024, D 80, bf16), granite's
-             (B 2, H 24, KV 8, S 1024, D 64; timed too), a GQA shape, a
+             (B 2, H 24, KV 8, S 1024, D 64), whisper-small's encoder
+             (B 8, H 12, S 1500, D 64, non-causal), cross-attention (448
+             queries against 1500 frames, non-causal) and decoder (448,
+             causal), phi-3-vision-4.2b's (B 2, H 32, S 1600, D 96; all
+             timed too), a GQA shape, a
              ragged length, rows that see no key (Sq > Sk), the reduced
              config's head (D 16), a bf16 head off the tensor-core route
              (D 40, SIMT) and an f32 shape, and ``ops.flash_attention`` in
@@ -79,7 +83,21 @@ non-zero and print no result):
              (the limits hold each block decoded on the forward's inputs,
              the logits the greedy agreement), and ``plan_function`` on
              its non-chain graph at 1 unit;
-12. result — the ``kernels`` JSON line, the card's name and power limit,
+12. xlstm  — xlstm-1.3b (6 units of 7 mLSTM blocks and 1 sLSTM block,
+             heads of 512, no attention): the launcher at full width and
+             depth, a profiled step, the serving launcher, decode against
+             the forward (held block by block), ``plan_function`` at 1 unit
+             on 512 tokens; no kernel launch anywhere;
+13. whisper — whisper-small (12 + 12 layers): the Trainer on frames at
+             batch 8 (1500 frames, 448 tokens; the launcher has no frames),
+             the serving launcher with one clip a slot (the encoder runs
+             once), decode against ``decode_train``, and ``plan_function``
+             on its non-chain graph at full depth;
+14. vision — phi-3-vision-4.2b: the Trainer on batches carrying the
+             576-patch prefix (S 1600) under ``launch.steps.segment_plan``'s
+             plan for that length, the serving launcher (text-only), and
+             ``plan_function`` at 2 units with the prefix;
+15. result — the ``kernels`` JSON line, the card's name and power limit,
              and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and outside a checkout.
@@ -117,6 +135,25 @@ MOE_TEACHER_TOKENS = 8
 # phase hybrid: the front door's depth (one unit: 6 Mamba2 blocks and the
 # shared block; planning time grows steeply with the node count)
 HYBRID_PLANNED_UNITS = 1
+# phase xlstm: the front door's depth (one unit: 7 mLSTM blocks and the sLSTM
+# block); decode held block by block: at random init the 48 blocks amplify
+# bf16 rounding (on the H100 the bf16 logits' max |gap| was 0.86, greedy
+# agreement 0.60, while f32's was 1.5e-4)
+XLSTM_PLANNED_UNITS = 1
+XLSTM_BLOCKWISE = True
+# the xLSTM front door's sequence: 2 chunks of 256 (1,394 nodes; at 1024
+# tokens its 2,332 nodes took 376 s to plan on the H100's host)
+XLSTM_PLANNED_SEQ = 512
+# phase whisper: the Trainer's batch, whisper's text context, the serving
+# launcher (one clip a slot) and the front door's layers on each side
+WHISPER_BATCH = 8
+WHISPER_TOKENS = 448
+WHISPER_SERVE_ARGS = ["--arch", "whisper-small", "--full", "--requests", "16", "--slots",
+                      "8", "--max-seq", "448", "--new-tokens", "64"]
+WHISPER_PLANNED_LAYERS = 12
+# phase vision: the front door's depth (the Trainer runs all 32 layers: on
+# the H100 they peaked at 0.850 of the card, under the 0.9 that would cut them)
+VISION_PLANNED_UNITS = 2
 # step-by-step decode against the full forward at full width (the limits of
 # PERF.md's serving prediction): f32 max |gap|; bf16 max and mean |gap| and
 # the share of positions whose greedy token agrees
@@ -133,21 +170,30 @@ CKPT_UNITS = 2
 # a bf16 d_ff activation of the planned workload (2 x 1024 x 6912) and the
 # f32 log-softmax of its loss head (2 x 1024 x 50304)
 BANDWIDTH_BYTES = (2 * 1024 * 6912 * 2, 2 * 1024 * 50304 * 4)
-# (name, B, H, KV, Sq, Sk, D, dtype name); the first is the training path's shape
+# (name, B, H, KV, Sq, Sk, D, dtype name, causal); the first is the training
+# path's shape
 KERNEL_CASES = [
-    ("path", 2, 32, 32, 1024, 1024, 80, "bfloat16"),
-    ("gqa", 2, 32, 8, 1024, 1024, 80, "bfloat16"),
-    ("ragged", 1, 8, 4, 1000, 1000, 80, "bfloat16"),
-    ("empty_rows", 1, 8, 2, 384, 200, 80, "bfloat16"),  # rows 0-183 see no key
-    ("reduced", 2, 4, 4, 64, 64, 16, "bfloat16"),  # the launcher's --reduced head
-    ("d40_simt", 1, 4, 2, 136, 136, 40, "bfloat16"),  # D not a multiple of 16: SIMT
-    ("f32_decode", 1, 4, 2, 200, 328, 64, "float32"),
+    ("path", 2, 32, 32, 1024, 1024, 80, "bfloat16", True),
+    ("gqa", 2, 32, 8, 1024, 1024, 80, "bfloat16", True),
+    ("ragged", 1, 8, 4, 1000, 1000, 80, "bfloat16", True),
+    ("empty_rows", 1, 8, 2, 384, 200, 80, "bfloat16", True),  # rows 0-183 see no key
+    ("reduced", 2, 4, 4, 64, 64, 16, "bfloat16", True),  # the launcher's --reduced head
+    ("d40_simt", 1, 4, 2, 136, 136, 40, "bfloat16", True),  # D not a multiple of 16: SIMT
+    ("f32_decode", 1, 4, 2, 200, 328, 64, "float32", True),
     # granite-moe-3b-a800m's attention on its launcher path: D 64, GQA 24:8
-    ("granite", 2, 24, 8, 1024, 1024, 64, "bfloat16"),
+    ("granite", 2, 24, 8, 1024, 1024, 64, "bfloat16", True),
+    # whisper-small at phase whisper's batch 8: the encoder over 1500 frames
+    # (non-causal), the decoder's cross-attention (448 queries against the
+    # 1500 frames, non-causal) and its causal self-attention over 448 tokens
+    ("whisper_enc", 8, 12, 12, 1500, 1500, 64, "bfloat16", False),
+    ("whisper_cross", 8, 12, 12, 448, 1500, 64, "bfloat16", False),
+    ("whisper_dec", 8, 12, 12, 448, 448, 64, "bfloat16", True),
+    # phi-3-vision-4.2b: 576 patches before 1024 tokens, D 96
+    ("vision", 2, 32, 32, 1600, 1600, 96, "bfloat16", True),
 ]
 # the cases timed beside their bounds and library calls: the dense path's
-# (whose numbers fill the kernels JSON line) and granite's
-TIMED_CASES = ("path", "granite")
+# (whose numbers fill the kernels JSON line) and each model family's
+TIMED_CASES = ("path", "granite", "whisper_enc", "whisper_cross", "whisper_dec", "vision")
 # limits on |kernel - plain| for outputs and gradients, by dtype: absolute,
 # plus for bf16 one unit in the last place of the plain value (2**-7 |ref|),
 # by which two roundings of nearly equal values can differ (a value near 10
@@ -183,6 +229,14 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def attention_blocks(cfg) -> int:
+    """Attention blocks in one unit of ``cfg``'s LM (each launches the
+    kernels once a forward): 1 for the dense, MoE and hybrid units, 0 for
+    xLSTM's."""
+    kinds, _ = importlib.import_module("repro_torch.models").unit_pattern(cfg)
+    return sum("attn" in kind for kind in kinds)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -232,7 +286,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sdpa_backward_ms(q, k, v, do):
+def sdpa_backward_ms(q, k, v, do, causal=True):
     """Time of aten's flash-attention backward, which computes dq, dk and dv
     in one call (no PyTorch call computes dq alone), fed from its own
     forward: by CUDA-graph replay, or where capture is refused by CUDA
@@ -241,11 +295,11 @@ def sdpa_backward_ms(q, k, v, do):
 
     aten = torch.ops.aten
     out, lse, cq, ck, mq, mk, seed, offset = aten._scaled_dot_product_flash_attention(
-        q, k, v, 0.0, True)[:8]
+        q, k, v, 0.0, causal)[:8]
 
     def call():
         return aten._scaled_dot_product_flash_attention_backward(
-            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
 
     try:
         return device_ms(call), "CUDA-graph replay"
@@ -348,21 +402,22 @@ def phase_kernels(results):
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     ref = importlib.import_module("repro_torch.kernels.ref")
     dev = torch.device("cuda")
-    for ci, (name, B, H, KV, Sq, Sk, D, dtn) in enumerate(KERNEL_CASES):
+    for ci, (name, B, H, KV, Sq, Sk, D, dtn, causal) in enumerate(KERNEL_CASES):
         dt = getattr(torch, dtn)
         g = torch.Generator(device=dev).manual_seed(ci)
         q = torch.randn(B, H, Sq, D, device=dev, dtype=dt, generator=g)
         k = torch.randn(B, KV, Sk, D, device=dev, dtype=dt, generator=g)
         v = torch.randn(B, KV, Sk, D, device=dev, dtype=dt, generator=g)
         do = torch.randn(B, H, Sq, D, device=dev, dtype=dt, generator=g)
+        c = dict(causal=causal)
 
-        o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v)
-        o, lse = fa.flash_attention_fwd(q, k, v)
+        o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v, **c)
+        o, lse = fa.flash_attention_fwd(q, k, v, **c)
         delta = ref.row_delta(o_ref, do)
-        dq_ref = ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do)
-        dq = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do)
-        dk_ref, dv_ref = ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do)
+        dq_ref = ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do, **c)
+        dq = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
+        dk_ref, dv_ref = ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do, **c)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do, **c)
         torch.cuda.synchronize()
 
         tol, rtol = TOL[dtn], RTOL[dtn]
@@ -378,27 +433,30 @@ def phase_kernels(results):
             continue
 
         # a training path's shape: times, bounds and the library yardstick
-        bounds = attention_bounds(B, H, KV, Sq, Sk, D, dtn)
+        bounds = attention_bounds(B, H, KV, Sq, Sk, D, dtn, causal)
         timed = {
-            "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v),
-                          lambda: ref.attention_with_lse_ref(q, k, v)),
-            "flash_bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do),
-                             lambda: ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do)),
-            "flash_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do),
-                              lambda: ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do)),
+            "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, **c),
+                          lambda: ref.attention_with_lse_ref(q, k, v, **c)),
+            "flash_bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c),
+                             lambda: ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do,
+                                                              **c)),
+            "flash_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do,
+                                                                 **c),
+                              lambda: ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do,
+                                                                **c)),
         }
-        dq2 = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
         torch.cuda.synchronize()
         print(f"[kernels] {name:10s} dq bitwise equal over two calls: {torch.equal(dq, dq2)}")
         check(torch.equal(dq, dq2), "flash_bwd_dq is not deterministic")
-        lib_fwd, fwd_label = library_forward_ms(q, k, v)
+        lib_fwd, fwd_label = library_forward_ms(q, k, v, causal)
         if KV == H:
-            lib_bwd, lib_bwd_method = sdpa_backward_ms(q, k, v, do)
+            lib_bwd, lib_bwd_method = sdpa_backward_ms(q, k, v, do, causal)
             bwd_label = BWD_LIBRARY
         else:  # aten's flash backward takes no GQA: k and v repeated to H heads
             rep = H // KV
             lib_bwd, lib_bwd_method = sdpa_backward_ms(
-                q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), do)
+                q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), do, causal)
             bwd_label = BWD_LIBRARY + f", on k and v repeated to {H} heads"
         library = {"flash_fwd": (lib_fwd, fwd_label),
                    "flash_bwd_dq": (lib_bwd, bwd_label),
@@ -436,9 +494,9 @@ def phase_kernels(results):
     torch._C._cuda_clearCublasWorkspaces()
 
 
-def library_forward_ms(q, k, v):
-    """Device time of ``scaled_dot_product_attention``'s causal forward on
-    the kernels' inputs, with ``enable_gqa`` where k and v have fewer heads
+def library_forward_ms(q, k, v, causal=True):
+    """Device time of ``scaled_dot_product_attention``'s forward on the
+    kernels' inputs, with ``enable_gqa`` where k and v have fewer heads
     (or, where this torch lacks it, on k and v repeated to q's heads).
     Returns (ms, label)."""
     import torch.nn.functional as F
@@ -446,15 +504,16 @@ def library_forward_ms(q, k, v):
     label = "scaled_dot_product_attention (forward)"
     H, KV = q.shape[1], k.shape[1]
     if H == KV:
-        return device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)), label
+        return device_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                is_causal=causal)), label
     try:
-        F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
     except TypeError:
         rep = H // KV
         k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-        return (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        return (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)),
                 label + f", on k and v repeated to {H} heads")
-    return (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    return (device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                              enable_gqa=True)),
             label + ", enable_gqa=True")
 
@@ -469,16 +528,17 @@ def check_model_layout(seed: int, case: str = "path") -> None:
 
     ops = importlib.import_module("repro_torch.kernels.ops")
     ref = importlib.import_module("repro_torch.kernels.ref")
-    _, B, H, KV, S, _, D, dtn = next(c for c in KERNEL_CASES if c[0] == case)
+    _, B, H, KV, Sq, Sk, D, dtn, causal = next(c for c in KERNEL_CASES if c[0] == case)
     dev, dt = torch.device("cuda"), getattr(torch, dtn)
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(B, S, n, D, device=dev, dtype=dt, generator=g)
-                   for n in (H, KV, KV, H))
+                   for S, n in ((Sq, H), (Sk, KV), (Sk, KV), (Sq, H)))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = ops.flash_attention(*leaves)
+    out = ops.flash_attention(*leaves, causal=causal)
     grads = torch.autograd.grad(out, leaves, do)
     f32 = [t.float().requires_grad_() for t in (q, k, v)]
-    out_ref = ref.attention_with_lse_ref(*(t.transpose(1, 2) for t in f32))[0].transpose(1, 2)
+    out_ref = ref.attention_with_lse_ref(*(t.transpose(1, 2) for t in f32),
+                                         causal=causal)[0].transpose(1, 2)
     grads_ref = torch.autograd.grad(out_ref, f32, do.float())
     torch.cuda.synchronize()
     for tname, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), (out_ref, *grads_ref)):
@@ -640,12 +700,10 @@ def profile_step(tag: str, cfg, sizes, remat) -> None:
     import gc
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     models = importlib.import_module("repro_torch.models")
     data = importlib.import_module("repro_torch.data")
     train = importlib.import_module("repro_torch.train")
-    adamw = importlib.import_module("repro_torch.optim.adamw")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -655,15 +713,30 @@ def profile_step(tag: str, cfg, sizes, remat) -> None:
     tr = train.Trainer(lambda m, b: m.loss(b, sizes, remat), model,
                        train.TrainConfig(total_steps=2, log_every=0), device=dev)
     stream = data.SyntheticLM(data.DataConfig(cfg.vocab_size, 1024, 2))
-    tr.train_step(tr._to_device(stream.batch(0)))  # warm-up
-    batch = tr._to_device(stream.batch(1))
+    profile_trainer(tag, tr, stream.batch(0), stream.batch(1))
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_trainer(tag: str, tr, warm, batch) -> None:
+    """A step of Trainer ``tr`` on host ``batch`` after a warm-up step on
+    ``warm``, under ``torch.profiler``; then its AdamW update timed alone."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    adamw = importlib.import_module("repro_torch.optim.adamw")
+    tr.train_step(tr._to_device(warm))  # warm-up
+    batch = tr._to_device(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tr.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print_device_time(tag, f"one step of {cfg.name}", prof, wall_ms)
+    print_device_time(tag, f"one step of {tr.model.cfg.name}", prof, wall_ms)
 
     grads = [torch.ones_like(p) for p in tr.params]
     update_ms = time_ms(lambda: adamw.update(tr.cfg.optimizer, grads, tr.opt_state,
@@ -671,7 +744,7 @@ def profile_step(tag: str, cfg, sizes, remat) -> None:
                         iters=3, warmup=1)
     print(f"[{tag}] AdamW update alone (the Trainer's, {len(grads)} tensors): "
           f"{update_ms:.3f} ms")
-    del tr, model, grads, prof
+    del grads, prof, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1466,13 +1539,15 @@ def phase_ckpt(results):
     torch.cuda.empty_cache()
 
 
-def serve_run(tag: str, args) -> dict:
+def serve_run(tag: str, args, launches=None) -> dict:
     """``repro_torch.launch.serve`` with ``args`` at full width: every decode
     step's logits checked finite on the device (read once at the end);
     prints requests, tokens, step times, peak memory, KV-cache bytes and
     the kernels' launches, and fails unless every request completes with
-    its 64 tokens and no kernel launched (decode is plain PyTorch, as in
-    the reference).  Returns the launcher's result and the launch counts."""
+    its 64 tokens and the kernels launched ``launches`` times (none by
+    default: decode is plain PyTorch, as in the reference; an
+    encoder-decoder engine runs its encoder once).  Returns the launcher's
+    result and the launch counts."""
     import gc
 
     import numpy as np
@@ -1481,25 +1556,29 @@ def serve_run(tag: str, args) -> dict:
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     serve = importlib.import_module("repro_torch.launch.serve")
-    transformer = importlib.import_module("repro_torch.models.transformer")
+    models = importlib.import_module("repro_torch.models")
     gc.collect()
     torch.cuda.empty_cache()
 
     finite = []
-    decode_step = transformer.LM.decode_step
+    decode_steps = {cls: cls.decode_step for cls in (models.LM, models.WhisperModel)}
 
-    def checked(self, tokens, caches, position):
-        logits, caches = decode_step(self, tokens, caches, position)
-        finite.append(torch.isfinite(logits).all())
-        return logits, caches
+    def watched(decode_step):
+        def checked(self, tokens, caches, position):
+            logits, caches = decode_step(self, tokens, caches, position)
+            finite.append(torch.isfinite(logits).all())
+            return logits, caches
+        return checked
 
-    transformer.LM.decode_step = checked
+    for cls, decode_step in decode_steps.items():
+        cls.decode_step = watched(decode_step)
     fa.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     try:
         out = serve.main(args)
     finally:
-        transformer.LM.decode_step = decode_step
+        for cls, decode_step in decode_steps.items():
+            cls.decode_step = decode_step
     counts = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -1520,7 +1599,8 @@ def serve_run(tag: str, args) -> dict:
           "a request did not complete with its 64 tokens")
     check(all_finite, "a decode step gave a non-finite logit")
     check(peak < 0.9 * total, "serving took more than 0.9 of the card's memory")
-    check(not any(counts.values()), "the engine's plain decode launched a kernel")
+    want = {name: (launches or {}).get(name, 0) for name in fa.KERNELS}
+    check(counts == want, f"the engine launched the kernels {counts} times, not {want}")
     return out, counts
 
 
@@ -1626,8 +1706,8 @@ def teacher_forcing(tag: str, arch: str, n_tokens: int, blockwise: bool = False,
               f"launches {json.dumps(counts)}; logits max |x| {full.abs().max().item():.4f}"
               + (f"; routes dropped by the forward {dropped} of "
                  f"{sum(k.numel() for k in kept)}" if kept else ""))
-        check(counts["flash_fwd"] == model.n_units, "the forward did not launch flash_fwd "
-              "once a unit")
+        check(counts["flash_fwd"] == model.n_units * attention_blocks(cfg),
+              "the forward did not launch flash_fwd once an attention block")
         check(dropped == 0, "the forward dropped routes that decode keeps")
         if blockwise:
             blocks = blockwise_gaps(model, toks)
@@ -1713,6 +1793,7 @@ def family_launcher(results, tag: str, arch: str):
     check(sp is not None and res.feasible, "the launcher made no feasible plan")
     n, steps = out["n_units"], out["step"]
     recomputed = sum(s for s, r in zip(sp.sizes, sp.remat) if r)
+    per_unit = attention_blocks(cfg)
     print(f"[{tag}] {arch}: {cfg.num_params()} parameters, {n} units; plan: sizes "
           f"{list(sp.sizes)} remat {list(sp.remat)} n_micro {sp.n_micro}; DP peak "
           f"{res.peak_memory:.4e} B, overhead {res.overhead:g}")
@@ -1730,9 +1811,9 @@ def family_launcher(results, tag: str, arch: str):
               f"{T * cfg.moe.top_k / cfg.moe.num_experts:g} routes an expert")
     check(steps == 3 and out["skipped"] == 0, "a launcher step was skipped")
     check(all(math.isfinite(x) for x in out["losses"]), "non-finite launcher loss")
-    check(counts["flash_fwd"] == steps * (n + recomputed),
+    check(counts["flash_fwd"] == steps * per_unit * (n + recomputed),
           "flash_fwd launches do not match the units run and recomputed")
-    check(counts["flash_bwd_dq"] == steps * n and counts["flash_bwd_dkv"] == steps * n,
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == steps * per_unit * n,
           "backward kernel launches do not match the units run")
     check(peak < 0.9 * total, "the launcher took more than 0.9 of the card's memory")
     for name, c in counts.items():
@@ -1743,14 +1824,16 @@ def family_launcher(results, tag: str, arch: str):
     return sp
 
 
-def front_door(results, tag: str, arch: str, n_units: int) -> None:
+def front_door(results, tag: str, arch: str, n_units: int, seq: int = 1024,
+               batch_size: int = 2, extra=None) -> None:
     """``plan_function`` on ``arch``'s loss at full width and ``n_units``
-    units, at the exact minimal budget, against plain autograd on the same
-    weights and batch: the loss bitwise; the grads bitwise those of plain
-    autograd run in the plan's node order (``vanilla_traced_value_and_grad``
-    with the plan), and beside plain autograd in the trace's order; one more
-    ``flash_fwd`` per recomputed flash node; a lower peak above resident
-    state."""
+    units (layers on each side for whisper), at the exact minimal budget,
+    against plain autograd on the same weights and batch (``batch_size`` x
+    ``seq`` tokens, and ``extra(cfg, device)``'s entries): the loss bitwise;
+    the grads bitwise those of plain autograd run in the plan's node order
+    (``vanilla_traced_value_and_grad`` with the plan), and beside plain
+    autograd in the trace's order; one more ``flash_fwd`` per recomputed
+    flash node; a lower peak above resident state."""
     import dataclasses
     import gc
 
@@ -1766,12 +1849,14 @@ def front_door(results, tag: str, arch: str, n_units: int) -> None:
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
     base = configs.get_config(arch)
-    per_unit = base.hybrid_shared_attn_every or 1
+    per_unit = base.n_layers // models.unit_pattern(base)[1]  # layers a unit
     cfg = dataclasses.replace(base, n_layers=n_units * per_unit)
     model = models.build_model(cfg, device=dev,
                                generator=torch.Generator(device=dev).manual_seed(0))
-    host = data.SyntheticLM(data.DataConfig(cfg.vocab_size, 1024, 2)).batch(0)
+    host = data.SyntheticLM(data.DataConfig(cfg.vocab_size, seq, batch_size)).batch(0)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    if extra is not None:
+        batch.update(extra(cfg, dev))
     n = model.n_units
     step_loss, params = train.functional_loss(lambda m, b: m.loss(b, (n,), (False,)), model)
 
@@ -1784,9 +1869,11 @@ def front_door(results, tag: str, arch: str, n_units: int) -> None:
     flash = {nd.idx for nd in g.nodes if nd.kind == "flash_attention"}
     rec = set().union(*(s.recompute for s in plan.segments))
     rec_flash = flash & rec
-    skips = max(len(g.succ[v]) for v in range(g.n))
+    widest = max(range(g.n), key=lambda v: len(g.succ[v]))
     print(f"[{tag}] front door {arch} at {n} unit(s): {g.n} nodes ({len(flash)} "
-          f"flash_attention), widest fan-out {skips}; traced and planned in {plan_s:.2f} s; "
+          f"flash_attention), widest fan-out {len(g.succ[widest])} (node {widest}, "
+          f"{g.nodes[widest].kind}, read by {sorted({g.nodes[w].kind for w in g.succ[widest]})})"
+          f"; traced and planned in {plan_s:.2f} s; "
           f"exact minimal budget {lowered.report.budget:.6e} B, peak {plan.peak_memory:.6e} B, "
           f"overhead {plan.overhead:g} of {g.total_time:g}, {plan.num_segments} segments, "
           f"{len(rec)} nodes and {len(rec_flash)} flash nodes recomputed")
@@ -1862,6 +1949,228 @@ def phase_hybrid(results):
     front_door(results, "hybrid", arch, HYBRID_PLANNED_UNITS)
 
 
+def phase_xlstm(results):
+    """xlstm-1.3b (6 units of 7 mLSTM blocks and 1 sLSTM block, no
+    attention): the launcher at full width and depth, a profiled step, the
+    serving launcher, teacher forcing, and the front door at 1 unit; no
+    kernel launches anywhere."""
+    arch = "xlstm-1.3b"
+    configs = importlib.import_module("repro_torch.configs")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    sp = family_launcher(results, "xlstm", arch)
+    profile_step("xlstm", configs.get_config(arch), sp.sizes, sp.remat)
+    _, counts = serve_run("xlstm", ["--arch", arch] + SERVE_ARGS)
+    for name in counts:
+        results[name]["xlstm_serve_launches"] = counts[name]
+    teacher_forcing("xlstm", arch, TEACHER_TOKENS, blockwise=XLSTM_BLOCKWISE)
+    front_door(results, "xlstm", arch, XLSTM_PLANNED_UNITS, seq=XLSTM_PLANNED_SEQ)
+    check(not any(results[name][key] for name in fa.KERNELS
+                  for key in ("xlstm_launches", "xlstm_serve_launches",
+                              "xlstm_planned_launches")),
+          "an xLSTM path launched an attention kernel")
+
+
+def whisper_frames(cfg, step: int, batch: int, dev):
+    """The audio stub's frames (batch, 1500, d_model) in f32, drawn on the
+    card from a generator seeded ``step``."""
+    import torch
+
+    return torch.randn((batch, cfg.frontend_seq, cfg.d_model), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(step))
+
+
+def whisper_batch(cfg, step: int, batch: int, dev) -> dict:
+    """Batch ``step`` of whisper's training stream: the reference pipeline's
+    tokens and labels (``batch`` x ``WHISPER_TOKENS``) and their frames."""
+    data = importlib.import_module("repro_torch.data")
+    out = dict(data.SyntheticLM(data.DataConfig(cfg.vocab_size, WHISPER_TOKENS,
+                                                batch)).batch(step))
+    out["frames"] = whisper_frames(cfg, step, batch, dev)
+    return out
+
+
+def train_family(results, tag: str, cfg, loss_fn, batches, per_step: dict,
+                 plan=None) -> None:
+    """3 Trainer steps of ``cfg`` at full width on ``loss_fn`` over
+    ``batches(step)``: losses, step times, the peak against the card, the
+    kernels' launches (``per_step`` of each a step), then a profiled step.
+    ``plan`` = (sizes, remat, DP result) is printed beside the peak."""
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    models = importlib.import_module("repro_torch.models")
+    train = importlib.import_module("repro_torch.train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    model = models.build_model(cfg, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    tr = train.Trainer(loss_fn, model, train.TrainConfig(total_steps=3, log_every=0),
+                       device=dev)
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    out = tr.run(batches(i) for i in range(3))
+    counts = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{tag}] {cfg.name}: {n_params} parameters ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}), {state} B on the card before the first step")
+    if plan is not None:
+        sizes, remat, res = plan
+        print(f"[{tag}] plan: sizes {list(sizes)} remat {list(remat)}; DP peak "
+              f"{res.peak_memory:.4e} B above state, overhead {res.overhead:g}; measured "
+              f"{peak - state} B above the parameters and moments")
+    for i, (loss, dt) in enumerate(zip(out["losses"], out["step_seconds"])):
+        print(f"[{tag}] step {i + 1} loss {loss:.6f} grad norm {out['grad_norms'][i]:.4f} "
+              f"time {dt:.4f} s")
+    print(f"[{tag}] max_memory_allocated {peak} B ({peak / total:.3f} of {total} B)")
+    print(f"[{tag}] launches {json.dumps(counts)} over 3 steps")
+    check(out["skipped"] == 0 and all(math.isfinite(x) for x in out["losses"]),
+          "a step was skipped or gave a non-finite loss")
+    check(counts == {k: 3 * n for k, n in per_step.items()},
+          f"the kernels launched {counts} times, not {per_step} a step")
+    check(peak < 0.9 * total, "training took more than 0.9 of the card's memory")
+    for name, c in counts.items():
+        results[name][f"{tag}_launches"] = c
+    profile_trainer(tag, tr, batches(3), batches(4))
+    del tr, model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def teacher_forcing_whisper(tag: str, n_tokens: int, seed: int = 5) -> None:
+    """whisper-small's step-by-step decode of ``n_tokens`` tokens (caches
+    from ``init_caches``, which encodes the clip) against ``decode_train``
+    on the same encoder output, in f32 and bf16, under the ``TEACHER_*``
+    limits."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    dev = torch.device("cuda")
+    base = configs.get_config("whisper-small")
+    toks = torch.randint(0, base.vocab_size, (1, n_tokens),
+                         generator=torch.Generator().manual_seed(seed)).to(dev)
+    frames = torch.randn((1, base.frontend_seq, base.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+    L = base.n_layers
+    for dtn in ("float32", "bfloat16"):
+        model = models.build_model(dataclasses.replace(base, dtype=dtn), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            full = model.decode_train(toks, model.encode(frames))
+        counts = dict(fa.LAUNCHES)
+        caches = model.init_caches(frames, n_tokens)
+        stepwise = torch.stack([
+            model.decode_step(toks[:, t:t + 1], caches, torch.tensor([t], device=dev))[0][:, 0]
+            for t in range(n_tokens)], 1)
+        gap = (stepwise - full).abs()
+        worst, mean = gap.max().item(), gap.mean().item()
+        agree = (stepwise.argmax(-1) == full.argmax(-1)).float().mean().item()
+        print(f"[{tag}] teacher forcing whisper-small {dtn}, {n_tokens} tokens on one clip: "
+              f"max |gap| {worst:.4e}, mean |gap| {mean:.4e}, greedy agreement {agree:.4f}; "
+              f"encode + decode_train launches {json.dumps(counts)}; logits max |x| "
+              f"{full.abs().max().item():.4f}")
+        check(counts["flash_fwd"] == 3 * L, "the forward did not launch flash_fwd once an "
+              "attention (encoder, self, cross)")
+        if dtn == "float32":
+            check(worst <= TEACHER_F32_TOL, "f32 decode differs from the forward")
+        else:
+            check(worst <= TEACHER_BF16_MAX and mean <= TEACHER_BF16_MEAN
+                  and agree >= TEACHER_BF16_AGREE, "bf16 decode differs from the forward")
+        del model, caches, full, stepwise, gap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_whisper(results):
+    """whisper-small (12 encoder + 12 decoder layers): the Trainer on
+    ``WhisperModel.loss`` at batch 8 (1500 frames, 448 tokens) with the
+    reference's default segmentation, the serving launcher with frames,
+    teacher forcing, and the front door on its non-chain graph."""
+    import torch
+
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    arch = "whisper-small"
+    cfg = configs.get_config(arch)
+    dev = torch.device("cuda")
+    L = cfg.n_layers
+    # no plan: the reference's default, sqrt(L) segments, each rematerialized
+    sizes = models.default_segments(L)
+    recomputed = sum(sizes) if len(sizes) > 1 else 0
+    print(f"[whisper] segments {list(sizes)} on each side, all rematerialized")
+    fwd = 3 * L + recomputed * 3  # encoder, self and cross attention, and their reruns
+    train_family(results, "whisper", cfg, lambda m, b: m.loss(b),
+                 lambda i: whisper_batch(cfg, i, WHISPER_BATCH, dev),
+                 {"flash_fwd": fwd, "flash_bwd_dq": 3 * L, "flash_bwd_dkv": 3 * L})
+    _, counts = serve_run("whisper", WHISPER_SERVE_ARGS, launches={"flash_fwd": L})
+    for name in counts:
+        results[name]["whisper_serve_launches"] = counts[name]
+    teacher_forcing_whisper("whisper", TEACHER_TOKENS)
+    front_door(results, "whisper", arch, WHISPER_PLANNED_LAYERS, seq=WHISPER_TOKENS,
+               extra=lambda c, d: {"frames": whisper_frames(c, 0, 2, d)})
+
+
+def vision_prefix(cfg, step: int, batch: int, dev):
+    """The vision stub's patch embeddings (batch, 576, d_model) in bf16,
+    drawn on the card from a generator seeded 1000 + ``step``."""
+    import torch
+
+    return torch.randn((batch, cfg.frontend_seq, cfg.d_model), device=dev,
+                       dtype=torch.bfloat16,
+                       generator=torch.Generator(device=dev).manual_seed(1000 + step))
+
+
+def phase_vision(results):
+    """phi-3-vision-4.2b (32 layers, d_model 3072, heads of 96): the Trainer
+    on batches carrying the 576-patch prefix (S = 1600) under the
+    launcher's own plan for that length, the serving launcher (text-only,
+    as the reference engine serves it), and the front door at 2 units with
+    the prefix."""
+    import torch
+
+    configs = importlib.import_module("repro_torch.configs")
+    data = importlib.import_module("repro_torch.data")
+    steps = importlib.import_module("repro_torch.launch.steps")
+    mesh = importlib.import_module("repro_torch.launch.mesh")
+    arch = "phi-3-vision-4.2b"
+    cfg = configs.get_config(arch)
+    dev = torch.device("cuda")
+    S = cfg.frontend_seq + 1024
+    sp, res = steps.segment_plan(cfg, configs.ShapeConfig("vision", S, 2, "train"),
+                                 hbm_bytes=mesh.device_hbm_bytes(), device="cuda")
+    check(sp is not None and res.feasible, "the launcher's planner made no feasible plan")
+    n = sum(sp.sizes)
+    recomputed = sum(s for s, r in zip(sp.sizes, sp.remat) if r)
+    print(f"[vision] {cfg.n_layers} layers; segment_plan at seq {S}: sizes "
+          f"{list(sp.sizes)} remat {list(sp.remat)} n_micro {sp.n_micro}")
+    stream = data.SyntheticLM(data.DataConfig(cfg.vocab_size, 1024, 2))
+
+    def batches(i):
+        return dict(stream.batch(i), extra_embeds=vision_prefix(cfg, i, 2, dev))
+
+    train_family(results, "vision", cfg,
+                 lambda m, b: m.loss(b, sp.sizes, sp.remat), batches,
+                 {"flash_fwd": n + recomputed, "flash_bwd_dq": n, "flash_bwd_dkv": n},
+                 plan=(sp.sizes, sp.remat, res))
+    _, counts = serve_run("vision", ["--arch", arch] + SERVE_ARGS)
+    for name in counts:
+        results[name]["vision_serve_launches"] = counts[name]
+    front_door(results, "vision", arch, VISION_PLANNED_UNITS,
+               extra=lambda c, d: {"extra_embeds": vision_prefix(c, 0, 2, d)})
+
+
 def main() -> int:
     try:
         import torch
@@ -1894,6 +2203,9 @@ def main() -> int:
         ("serve", lambda: phase_serve(results)),
         ("moe", lambda: phase_moe(results)),
         ("hybrid", lambda: phase_hybrid(results)),
+        ("xlstm", lambda: phase_xlstm(results)),
+        ("whisper", lambda: phase_whisper(results)),
+        ("vision", lambda: phase_vision(results)),
     ]
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -3,8 +3,11 @@
 Spins up the slot-based continuous-batching engine on the port's LM (random
 weights from ``--seed``) and drives a batch of synthetic requests through
 it, with the reference launcher's prompt generator, so both launchers
-submit the same prompts.  The device is CUDA unless ``--device cpu`` is
-given; without a card the CUDA default raises.  ``main`` returns the
+submit the same prompts.  An encoder-decoder arch (whisper) gets one clip
+of frames a slot, drawn from a generator seeded 1 on the device (the
+reference draws them from ``PRNGKey(1)``, so the clips differ).  The
+device is CUDA unless ``--device cpu`` is given; without a card the CUDA
+default raises.  ``main`` returns the
 completed requests, the wall seconds, the engine steps and each step's
 seconds, and the engine.
 """
@@ -45,8 +48,13 @@ def main(argv=None):
         cfg = reduced(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(cfg, device=device, generator=gen)
+    kw = {}
+    if cfg.encoder_decoder:
+        kw["frames"] = torch.randn(
+            (args.slots, cfg.frontend_seq, cfg.d_model), device=device,
+            generator=torch.Generator(device=device).manual_seed(1))
     eng = Engine(model, max_slots=args.slots, max_seq=args.max_seq,
-                 plan_cache_dir=args.plan_cache_dir)
+                 plan_cache_dir=args.plan_cache_dir, **kw)
 
     rng = np.random.default_rng(0)
     for _ in range(args.requests):

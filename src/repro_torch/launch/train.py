@@ -2,11 +2,14 @@
 
 Runs the port's stack end to end on one device: config → DP remat plan
 (chain carrier → Planner → segment lowering, budgeted against the card's
-memory) → the LM (dense, MoE or Mamba2 hybrid) with the flash-attention
-kernels → the Trainer (NaN guard, straggler hooks) over the synthetic
-pipeline.  The device is
-CUDA unless ``--device cpu`` is given; without a card the CUDA default
-raises instead of falling back.  On the CPU the plan budgets the
+memory) → the LM (dense, MoE, Mamba2 hybrid, xLSTM or the vision stub's
+backbone, text-only) with the flash-attention kernels → the Trainer (NaN
+guard, straggler hooks) over the synthetic pipeline.  The pipeline makes
+tokens only, so an encoder-decoder arch (whisper), whose loss reads
+``frames``, raises a ``ValueError`` before anything is built (the
+reference launcher fails at its first step with ``KeyError: 'frames'``).
+The device is CUDA unless ``--device cpu`` is given; without a card the
+CUDA default raises instead of falling back.  On the CPU the plan budgets the
 reference's per-device memory (16 GiB), so its plan equals the reference
 launcher's.  As in the reference, the plan's ``n_micro`` is printed but
 not applied: the Trainer runs the whole batch at once.
@@ -66,6 +69,10 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.encoder_decoder:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model whose loss reads "
+                         "`frames`; the synthetic pipeline has no frames (train it "
+                         "through Trainer on batches that carry them)")
     if args.reduced:
         cfg = reduced(cfg)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")

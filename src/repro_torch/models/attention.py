@@ -6,8 +6,11 @@ every full-sequence attention to ``kernels.flash_attention``: the CUDA
 kernels on the card (any length, bounds-checked), their plain versions on
 the CPU.  ``dense_attention`` is the O(S²)-memory reference the tests
 compare with.  ``decode_attention`` is one step of KV-cache decode in plain
-PyTorch, as the reference's is plain array code.  ``chunked_attention``
-waits for ROADMAP.md module queue, item 'Other model families'.
+PyTorch, as the reference's is plain array code.  ``chunked_attention`` is
+the reference's memory-efficient XLA lowering in plain torch (an online
+softmax over KV chunks); as in the reference off its kernel, ``attention``
+takes it, under a checkpoint, for a CPU tensor longer than
+``chunked_threshold``, so the CPU never holds an (S, S) score matrix there.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.ops import flash_attention
-from .layers import apply_rope
+from .layers import apply_rope, checkpointed
 
 
 def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
@@ -62,6 +65,62 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Memory-efficient attention: online softmax over KV chunks.
+
+    Never materializes more than (B, H, q_chunk, kv_chunk) scores.  S and Sk
+    are padded to chunk multiples (the VLM prefix makes S = 32768 + 576):
+    padded KV rows sit beyond every real query position, so the causal mask
+    excludes them, and padded query rows are sliced off at the end.
+    """
+    B, S, H, D = q.shape
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    Sk = k.shape[1]
+    q_chunk, kv_chunk = min(q_chunk, S), min(kv_chunk, Sk)
+    orig_S = S
+    pad_q, pad_k = (-S) % q_chunk, (-Sk) % kv_chunk
+    if pad_q or pad_k:
+        if not causal:
+            raise ValueError("chunk padding requires causal masking")
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        S, Sk = S + pad_q, Sk + pad_k
+    scale = 1.0 / math.sqrt(D)
+    outs = []
+    for qi in range(S // q_chunk):
+        q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk].transpose(1, 2)  # (B,H,qc,D)
+        acc = q.new_zeros((B, H, q_chunk, D), dtype=torch.float32)
+        m = q.new_full((B, H, q_chunk), float("-inf"), dtype=torch.float32)
+        s = q.new_zeros((B, H, q_chunk), dtype=torch.float32)
+        for ki in range(Sk // kv_chunk):
+            k_blk = k[:, ki * kv_chunk:(ki + 1) * kv_chunk].transpose(1, 2)
+            v_blk = v[:, ki * kv_chunk:(ki + 1) * kv_chunk].transpose(1, 2)
+            scores = torch.einsum("bhqd,bhkd->bhqk", q_blk, k_blk).float() * scale
+            if causal:
+                qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+                kpos = ki * kv_chunk + torch.arange(kv_chunk, device=q.device)
+                scores = scores.masked_fill(~(qpos[:, None] >= kpos[None, :]),
+                                            float("-inf"))
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            # guard fully-masked rows (m_new = -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+            p = torch.exp(scores - m_safe[..., None])
+            p = torch.where(torch.isfinite(scores), p, torch.zeros_like(p))
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                                torch.zeros_like(m))
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(v_blk.dtype), v_blk).float()
+            s = s * alpha + p.sum(dim=-1)
+            m = m_new
+        outs.append(acc / torch.clamp(s[..., None], min=1e-30))
+    out = torch.cat(outs, dim=2).transpose(1, 2)  # (B, S, H, D)
+    return out[:, :orig_S].to(q.dtype)
+
+
 def attention(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,
@@ -72,15 +131,22 @@ def attention(
     rope_theta: float,
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
+    chunked_threshold: int = 8192,
 ) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill), through
     ``kernels.flash_attention``: the CUDA kernels on the card, their plain
-    versions on the CPU."""
+    versions on the CPU up to ``chunked_threshold`` tokens, and above it
+    ``chunked_attention`` under a checkpoint, as the reference runs off
+    its kernel."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = qkv_proj(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta)
-    ctx = flash_attention(q, k, v, causal=causal)
+    if x.device.type == "cpu" and S > chunked_threshold:
+        ctx = checkpointed(lambda q_, k_, v_: chunked_attention(q_, k_, v_, causal=causal),
+                           q, k, v)
+    else:
+        ctx = flash_attention(q, k, v, causal=causal)
     return ctx.reshape(B, S, n_heads * d_head) @ p["wo"].to(x.dtype)
 
 

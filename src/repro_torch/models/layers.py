@@ -38,6 +38,16 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 over the last axis, with the population variance
+    (``jnp.var``'s default: ``correction=0``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
     return 1.0 / (theta ** exps)
@@ -59,6 +69,14 @@ def swiglu(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     g = x @ w_gate.to(dt)
     u = x @ w_up.to(dt)
     h = F.silu(g.float()).to(dt) * u
+    return h @ w_down.to(dt)
+
+
+def gelu_mlp(w_up: torch.Tensor, w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Up projection, GELU in f32 with the tanh approximation
+    (``jax.nn.gelu``'s default, not torch's exact one), down projection."""
+    dt = x.dtype
+    h = F.gelu((x @ w_up.to(dt)).float(), approximate="tanh").to(dt)
     return h @ w_down.to(dt)
 
 

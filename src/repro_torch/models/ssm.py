@@ -1,4 +1,4 @@
-"""State-space blocks (port of ``repro/models/ssm.py``, the Mamba2 part).
+"""State-space blocks (port of ``repro/models/ssm.py``): Mamba2 and xLSTM.
 
 Training runs the *chunked* SSD formulation, quadratic only within a chunk
 and recurrent across chunks; decode runs one step of the recurrence on an
@@ -10,8 +10,9 @@ instead of keeping them for every chunk.  While the fx carrier traces, the
 checkpoint is left out (``layers.checkpointed``): the traced graph holds
 each chunk's ops, and the plan decides what they recompute (ROADMAP.md §3).
 
-The xLSTM blocks (``mlstm_*``, ``slstm_*``) wait for ROADMAP.md module
-queue, item 'Other model families'.
+The xLSTM blocks: mLSTM runs the same chunked SSD with N = P = d_head;
+sLSTM's elementwise recurrence runs as a doubling scan (``linear_scan``),
+eager torch having no ``associative_scan``.
 """
 
 from __future__ import annotations
@@ -201,3 +202,152 @@ def mamba2_step(p: Dict, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: S
     y = rmsnorm(p["norm_out"]["scale"], y)
     out = y @ p["out_proj"]["w"].to(dt_)
     return x + out[:, None, :], {"ssm": new_ssm, "conv": conv_buf[:, 1:, :]}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM — mLSTM (matrix memory) and sLSTM (scalar memory) blocks
+# ---------------------------------------------------------------------------
+
+
+def mlstm_init(d_model: int, n_heads: int, *, device=None,
+               generator: Optional[torch.Generator] = None) -> Dict:
+    """The reference's param tree, f32."""
+    s = d_model**-0.5
+    kw = dict(device=device, generator=generator)
+    return {
+        "norm": {"scale": torch.ones(d_model, device=device)},
+        "wq": init_normal((d_model, d_model), s, **kw),
+        "wk": init_normal((d_model, d_model), s, **kw),
+        "wv": init_normal((d_model, d_model), s, **kw),
+        "w_gates": init_normal((d_model, 2 * n_heads), s, **kw),
+        "wo": init_normal((d_model, d_model), s, **kw),
+        "out_norm": {"scale": torch.ones(d_model, device=device)},
+    }
+
+
+def _mlstm_gates(p: Dict, h: torch.Tensor, H: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Input gate and log forget gate, f32, from the normed input."""
+    gates = (h @ p["w_gates"].to(h.dtype)).float()
+    i_gate = torch.sigmoid(gates[..., :H])
+    f_gate = torch.sigmoid(gates[..., H:] + 2.0)
+    return i_gate, torch.log(f_gate + 1e-9)
+
+
+def mlstm_apply(p: Dict, x: torch.Tensor, n_heads: int, chunk: int) -> torch.Tensor:
+    """mLSTM layer: C_t = f_t·C_{t-1} + i_t·v_t k_tᵀ ;  y_t = C_t q_t / nrm.
+
+    The same chunked recurrence as SSD with N = P = d_head; the normalizer
+    runs as a second recurrence with P = 1.
+    """
+    B, S, D = x.shape
+    dt_ = x.dtype
+    H = n_heads
+    Dh = D // H
+    h = rmsnorm(p["norm"]["scale"], x)
+    q = (h @ p["wq"].to(dt_)).reshape(B, S, H, Dh)
+    k = (h @ p["wk"].to(dt_)).reshape(B, S, H, Dh) * (Dh**-0.5)
+    v = (h @ p["wv"].to(dt_)).reshape(B, S, H, Dh)
+    i_gate, a_log = _mlstm_gates(p, h, H)
+    ig = i_gate[..., None].to(dt_)
+    y, _ = ssd_chunked(v * ig, a_log, k, q, chunk)  # state (B,H,Dh_v,Dh_k)
+    nrm, _ = ssd_chunked(ig, a_log, k, q, chunk)  # (B,S,H,1)
+    y = y / torch.clamp(nrm.abs(), min=1.0)
+    y = rmsnorm(p["out_norm"]["scale"], y.reshape(B, S, D))
+    return x + y @ p["wo"].to(dt_)
+
+
+def mlstm_init_state(batch: int, d_model: int, n_heads: int) -> Dict[str, torch.Tensor]:
+    Dh = d_model // n_heads
+    return {
+        "C": torch.zeros((batch, n_heads, Dh, Dh), dtype=torch.float32),
+        "n": torch.zeros((batch, n_heads, 1, Dh), dtype=torch.float32),
+    }
+
+
+def mlstm_step(p: Dict, x: torch.Tensor, state: Dict[str, torch.Tensor], n_heads: int
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step.  x (B,1,D) → (B,1,D), new state."""
+    B, _, D = x.shape
+    dt_ = x.dtype
+    H, Dh = n_heads, D // n_heads
+    h = rmsnorm(p["norm"]["scale"], x)[:, 0]
+    q = (h @ p["wq"].to(dt_)).reshape(B, H, Dh)
+    k = (h @ p["wk"].to(dt_)).reshape(B, H, Dh) * (Dh**-0.5)
+    v = (h @ p["wv"].to(dt_)).reshape(B, H, Dh)
+    i_gate, a_log = _mlstm_gates(p, h, H)
+    ig = i_gate[..., None].to(dt_)
+    y, C = ssd_step(v * ig, a_log, k, q, state["C"])
+    nrm, n = ssd_step(ig, a_log, k, q, state["n"])
+    y = y / torch.clamp(nrm.abs(), min=1.0)
+    y = rmsnorm(p["out_norm"]["scale"], y.reshape(B, D))
+    return x + (y @ p["wo"].to(dt_))[:, None, :], {"C": C, "n": n}
+
+
+def slstm_init(d_model: int, *, device=None,
+               generator: Optional[torch.Generator] = None) -> Dict:
+    """The reference's param tree, f32."""
+    kw = dict(device=device, generator=generator)
+    return {
+        "norm": {"scale": torch.ones(d_model, device=device)},
+        "w_zifo": init_normal((d_model, 4 * d_model), d_model**-0.5, **kw),
+        "wo": init_normal((d_model, d_model), d_model**-0.5, **kw),
+    }
+
+
+def linear_scan(f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """c_t = f_t·c_{t-1} + u_t along axis 1 from c_0 = 0, for all t at once.
+
+    The reference runs ``jax.lax.associative_scan`` with the combine
+    ``(f1, u1)∘(f2, u2) = (f1·f2, u1·f2 + u2)``; eager torch has none, so
+    this is the doubling (Hillis–Steele) scan with the same combine: after
+    the step of distance d, position t holds the composition of the
+    2d positions up to t, the ones before 0 being the identity (1, 0).
+    ⌈log2 S⌉ steps of whole-tensor ops, no division, so a forget-gate
+    product that underflows to 0 stays exact.  The association order
+    differs from JAX's, so sums agree to f32 rounding, not bitwise.
+    """
+    S = f.shape[1]
+    d = 1
+    while d < S:
+        f_prev = torch.cat([torch.ones_like(f[:, :d]), f[:, :-d]], dim=1)
+        u_prev = torch.cat([torch.zeros_like(u[:, :d]), u[:, :-d]], dim=1)
+        u = u_prev * f + u
+        f = f_prev * f
+        d *= 2
+    return u
+
+
+def _slstm_gates(p: Dict, h: torch.Tensor):
+    zifo = (h @ p["w_zifo"].to(h.dtype)).float()
+    z, i, f, o = torch.chunk(zifo, 4, dim=-1)
+    return torch.tanh(z), torch.sigmoid(i), torch.sigmoid(f + 1.0), torch.sigmoid(o)
+
+
+def slstm_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """sLSTM: elementwise gated recurrence by a parallel scan (O(S log S))."""
+    dt_ = x.dtype
+    h = rmsnorm(p["norm"]["scale"], x)
+    z, i, f, o = _slstm_gates(p, h)
+    c = linear_scan(f, i * z)  # zero initial state
+    n = torch.clamp(linear_scan(f, i), min=1e-6)
+    y = (o * c / n).to(dt_)
+    return x + y @ p["wo"].to(dt_)
+
+
+def slstm_init_state(batch: int, d_model: int) -> Dict[str, torch.Tensor]:
+    return {
+        "c": torch.zeros((batch, d_model), dtype=torch.float32),
+        "n": torch.zeros((batch, d_model), dtype=torch.float32),
+    }
+
+
+def slstm_step(p: Dict, x: torch.Tensor, state: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step.  x (B,1,D) → (B,1,D), new state."""
+    dt_ = x.dtype
+    h = rmsnorm(p["norm"]["scale"], x)[:, 0]
+    z, i, f, o = _slstm_gates(p, h)
+    c = f * state["c"] + i * z
+    n = f * state["n"] + i
+    y = (o * c / torch.clamp(n, min=1e-6)).to(dt_)
+    return x + (y @ p["wo"].to(dt_))[:, None, :], {"c": c, "n": n}

@@ -1,17 +1,20 @@
 """Language models from one ModelConfig (port of
-``repro/models/transformer.py``): the dense ``attn_mlp``, MoE ``attn_moe``
-and Mamba2-hybrid families.
+``repro/models/transformer.py``): the dense ``attn_mlp``, MoE ``attn_moe``,
+Mamba2-hybrid, xLSTM and vision-stub families.
 
 The layer stack is a chain of repeated *units* (one block for dense and
-MoE; "k Mamba2 blocks + the shared attention block" for the hybrid).  The
-reference stacks the unit params along a leading axis and runs them
+MoE; "k Mamba2 blocks + the shared attention block" for the hybrid; "k-1
+mLSTM blocks + 1 sLSTM block" for xLSTM).  The reference stacks the unit
+params along a leading axis and runs them
 through ``lax.scan``; here each unit is its own ``nn.Module`` in a
 ``ModuleList`` (slicing one stacked leaf would make autograd build a
 full-size gradient per unit), and ``weights.params_from_jax`` unstacks the
 reference's ``"layers"`` tree.  The hybrid's shared block is one top-level
 param set (``shared_attn``), applied once a unit to ``concat(h, h0)``,
 where h0 is the embedding output: the skip edges from the embedding make
-the layer graph non-chain.
+the layer graph non-chain.  A multimodal config's stub frontend hands
+``forward`` precomputed ``extra_embeds`` (B, F, D), prepended to the token
+embeddings; the loss drops those F positions.
 
 The paper's recomputation plan enters as ``segment_sizes``/``segment_remat``:
 units are partitioned into segments and ``scan_over_segments`` runs a
@@ -25,10 +28,10 @@ Decode (``init_caches``/``decode_step``) keeps the reference's cache tree:
 ``{"b{i}_attn_mlp": {"k", "v"}}`` (or ``b{i}_attn_moe``) with each leaf
 (n_units, B, S, KV, D) in the activation dtype; for the hybrid
 ``{"units": {"b{i}_mamba": {"ssm", "conv"}}, "shared": {"k", "v"}}``, the
-Mamba2 ``ssm`` state in f32 and ``conv`` in the activation dtype.  Each
+Mamba2 ``ssm`` state in f32 and ``conv`` in the activation dtype; xLSTM's
+``b{i}_mlstm: {"C", "n"}`` and ``b{i}_slstm: {"c", "n"}``, in f32.  Each
 unit decodes on its own slices (views) and writes its new state there in
-place.  The xLSTM blocks (``mlstm``, ``slstm``) wait for ROADMAP.md module
-queue, item 'Other model families': ``Unit`` raises for them.
+place.
 """
 
 from __future__ import annotations
@@ -121,12 +124,13 @@ class Attention(nn.Module):
             self.bk = nn.Parameter(torch.zeros(kv * dh, device=device))
             self.bv = nn.Parameter(torch.zeros(kv * dh, device=device))
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                causal: bool = True) -> torch.Tensor:
         c = self.cfg
         return attn.attention(
             dict(self.named_parameters(recurse=False)), x,
             n_heads=c.n_heads, n_kv_heads=c.n_kv_heads, d_head=c.head_dim,
-            rope_theta=c.rope_theta, positions=positions,
+            rope_theta=c.rope_theta, positions=positions, causal=causal,
         )
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -195,24 +199,83 @@ class AttnMoE(nn.Module):
         return self._moe(h + self.attn.decode(self.ln1(h), cache, position))
 
 
-class Mamba(nn.Module):
-    """The ``mamba`` block: one Mamba2 layer with its residual."""
+class _Recurrent(nn.Module):
+    """A recurrent block (``mamba``, ``mlstm``, ``slstm``): its param tree
+    under the block's kind, as in the reference, a full-sequence ``run``
+    and a decode ``step`` whose new state is copied into the cache in
+    place."""
 
-    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+    kind = ""
+
+    def __init__(self, params: Dict):
         super().__init__()
-        self.ssm_cfg = cfg.ssm or SSMConfig()
-        self.mamba = _params(**ssm_mod.mamba2_init(cfg.d_model, self.ssm_cfg,
-                                                   device=device, generator=generator))
+        self.add_module(self.kind, _params(**params))
+
+    def run(self, p: Dict, h: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def step(self, p: Dict, h: torch.Tensor, cache: Dict[str, torch.Tensor]):
+        raise NotImplementedError
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        return ssm_mod.mamba2_apply(_tree(self.mamba), h, self.ssm_cfg)
+        return self.run(_tree(getattr(self, self.kind)), h)
 
     def decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
                position: torch.Tensor) -> torch.Tensor:
-        h, new = ssm_mod.mamba2_step(_tree(self.mamba), h, cache, self.ssm_cfg)
+        h, new = self.step(_tree(getattr(self, self.kind)), h, cache)
         for key, t in new.items():
             cache[key].copy_(t)
         return h
+
+
+class Mamba(_Recurrent):
+    """The ``mamba`` block: one Mamba2 layer with its residual."""
+
+    kind = "mamba"
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        ssm_cfg = cfg.ssm or SSMConfig()
+        super().__init__(ssm_mod.mamba2_init(cfg.d_model, ssm_cfg, device=device,
+                                             generator=generator))
+        self.ssm_cfg = ssm_cfg
+
+    def run(self, p, h):
+        return ssm_mod.mamba2_apply(p, h, self.ssm_cfg)
+
+    def step(self, p, h, cache):
+        return ssm_mod.mamba2_step(p, h, cache, self.ssm_cfg)
+
+
+class MLSTM(_Recurrent):
+    """The ``mlstm`` block: one mLSTM layer with its residual."""
+
+    kind = "mlstm"
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__(ssm_mod.mlstm_init(cfg.d_model, cfg.n_heads, device=device,
+                                            generator=generator))
+        self.n_heads, self.chunk = cfg.n_heads, (cfg.ssm or SSMConfig()).chunk
+
+    def run(self, p, h):
+        return ssm_mod.mlstm_apply(p, h, self.n_heads, self.chunk)
+
+    def step(self, p, h, cache):
+        return ssm_mod.mlstm_step(p, h, cache, self.n_heads)
+
+
+class SLSTM(_Recurrent):
+    """The ``slstm`` block: one sLSTM layer with its residual."""
+
+    kind = "slstm"
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__(ssm_mod.slstm_init(cfg.d_model, device=device, generator=generator))
+
+    def run(self, p, h):
+        return ssm_mod.slstm_apply(p, h)
+
+    def step(self, p, h, cache):
+        return ssm_mod.slstm_step(p, h, cache)
 
 
 class SharedAttn(nn.Module):
@@ -245,7 +308,8 @@ class SharedAttn(nn.Module):
         return h + self.mlp(self.ln2(x))
 
 
-BLOCKS = {"attn_mlp": AttnMLP, "attn_moe": AttnMoE, "mamba": Mamba}
+BLOCKS = {"attn_mlp": AttnMLP, "attn_moe": AttnMoE, "mamba": Mamba, "mlstm": MLSTM,
+          "slstm": SLSTM}
 
 
 class Unit(nn.Module):
@@ -261,11 +325,6 @@ class Unit(nn.Module):
             if kind == "shared_attn":
                 self.steps.append(None)
                 continue
-            if kind not in BLOCKS:
-                raise NotImplementedError(
-                    f"block kind {kind!r} is not ported yet: ROADMAP.md module "
-                    "queue, item 'Other model families'"
-                )
             name = f"b{len(self.block_names)}_{kind}"
             self.add_module(name, BLOCKS[kind](cfg, device, generator))
             self.steps.append(name)
@@ -323,11 +382,17 @@ class LM(nn.Module):
     def forward(
         self,
         tokens: torch.Tensor,
+        extra_embeds: Optional[torch.Tensor] = None,
         segment_sizes: Optional[Tuple[int, ...]] = None,
         segment_remat: Optional[Tuple[bool, ...]] = None,
     ) -> torch.Tensor:
-        """tokens (B, S) → f32 logits (B, S, V)."""
-        h = embed(self.embedding.embed, tokens, self.cfg.activation_dtype)
+        """tokens (B, S) → f32 logits (B, F + S, V).  extra_embeds (B, F, D)
+        is the multimodal stub frontend's output, prepended to the token
+        embeddings (F = 0 without it)."""
+        dt = self.cfg.activation_dtype
+        h = embed(self.embedding.embed, tokens, dt)
+        if extra_embeds is not None:
+            h = torch.cat([extra_embeds.to(dt), h], dim=1)
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         h0 = h  # the hybrid's skip input, read by every unit
         h = scan_over_segments(
@@ -347,8 +412,13 @@ class LM(nn.Module):
         segment_sizes: Optional[Tuple[int, ...]] = None,
         segment_remat: Optional[Tuple[bool, ...]] = None,
     ) -> torch.Tensor:
-        logits = self.forward(batch["tokens"], segment_sizes, segment_remat)
-        return softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
+        logits = self.forward(batch["tokens"], batch.get("extra_embeds"), segment_sizes,
+                              segment_remat)
+        labels = batch["labels"]
+        F = logits.shape[1] - labels.shape[1]
+        if F > 0:  # multimodal prefix positions carry no labels
+            logits = logits[:, F:]
+        return softmax_xent(logits[:, :-1], labels[:, 1:])
 
     # ------------------------------------------------------------------ decode
 
@@ -356,8 +426,9 @@ class LM(nn.Module):
         """Zero caches for ``batch`` sequences of up to ``max_seq`` tokens, on
         the model's device, in the reference's tree: each attention block's
         ``{"k", "v"}``, (n_units, batch, max_seq, KV, D) in the activation
-        dtype; each Mamba2 block's ``{"ssm", "conv"}`` with the unit axis in
-        front; the hybrid's ``{"units": ..., "shared": {"k", "v"}}``."""
+        dtype; each recurrent block's state with the unit axis in front
+        (Mamba2 ``{"ssm", "conv"}``, mLSTM ``{"C", "n"}``, sLSTM
+        ``{"c", "n"}``); the hybrid's ``{"units": ..., "shared": {"k", "v"}}``."""
         cfg = self.cfg
         n, dt = self.n_units, cfg.activation_dtype
         kw = dict(dtype=dt, device=self.embedding.embed.device)
@@ -366,14 +437,19 @@ class LM(nn.Module):
             shape = (n, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
             return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
+        states = {
+            "mamba": lambda: ssm_mod.mamba2_init_state(batch, cfg.d_model,
+                                                       cfg.ssm or SSMConfig(), dt),
+            "mlstm": lambda: ssm_mod.mlstm_init_state(batch, cfg.d_model, cfg.n_heads),
+            "slstm": lambda: ssm_mod.slstm_init_state(batch, cfg.d_model),
+        }
         units: Dict[str, Dict[str, torch.Tensor]] = {}
         for name in self.layers[0].block_names:
-            if name.endswith("_mamba"):
-                state = ssm_mod.mamba2_init_state(batch, cfg.d_model,
-                                                  cfg.ssm or SSMConfig(), dt)
+            kind = name.split("_", 1)[1]
+            if kind in states:
                 units[name] = {k: torch.zeros((n, *t.shape), dtype=t.dtype,
                                               device=kw["device"])
-                               for k, t in state.items()}
+                               for k, t in states[kind]().items()}
             else:
                 units[name] = kv()
         return {"units": units, "shared": kv()} if self.has_shared else units
@@ -387,7 +463,7 @@ class LM(nn.Module):
     ) -> Tuple[torch.Tensor, Dict[str, Dict]]:
         """tokens (B, 1), position (B,) → (f32 logits (B, 1, V), caches).
 
-        Each row's new state (k and v at its position; the Mamba2 states)
+        Each row's new state (k and v at its position; the recurrent states)
         goes into the caches in place; the returned caches are the given
         ones.
         """

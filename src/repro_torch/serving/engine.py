@@ -12,10 +12,13 @@ continuous batching over the LM's decode step.
 
 The engine runs on its model's device (CUDA unless the model was built on
 the CPU); a step moves only the (slots, V) f32 logits to the host.  It
-serves every family the port's ``LM`` decodes (dense, MoE, Mamba2-hybrid):
-a reused slot's KV and recurrent states are zeroed.  The reference's
-sharded decode (``mesh``/``step_shardings``) and encoder-decoder serving
-(``frames``) are not ported and raise.
+serves every family the port builds: a reused slot's KV and recurrent
+states are zeroed.  An encoder-decoder model (whisper) takes ``frames``
+(slots, T, D), one clip a slot: its caches come from
+``model.init_caches(frames, max_seq)``, which runs the encoder once, and a
+reused slot zeroes its self-attention KV and keeps its cross-attention
+K/V, as in the reference.  The reference's sharded decode
+(``mesh``/``step_shardings``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -46,8 +49,9 @@ class Request:
 class Engine:
     """Continuous batching over ``model.decode_step``.
 
-    ``model`` is the port's ``LM``, whose parameters live on its device;
-    ``params``, when given, is a state dict loaded into it first.
+    ``model`` is the port's ``LM`` or ``WhisperModel``, whose parameters
+    live on its device; ``params``, when given, is a state dict loaded into
+    it first.
     ``step_seconds`` holds the host-clock time of each engine step, which
     ends with the logits' copy to the host.
     """
@@ -68,8 +72,6 @@ class Engine:
     ):
         if mesh is not None or step_shardings is not None:
             raise not_ported("sharded decode (mesh= / step_shardings=)", "Multi-device")
-        if frames is not None or model.cfg.encoder_decoder:
-            raise not_ported("encoder-decoder serving (frames=)", "Other model families")
         # Attaching the trainers' plan store makes any planning this process
         # does a content-addressed lookup; ``plan_remote`` adds the fleet
         # tier, through which replicas read plans the first one solved.
@@ -88,7 +90,13 @@ class Engine:
         self.max_slots = max_slots
         self.max_seq = max_seq
         self._rng = np.random.default_rng(rng_seed)
-        self.caches = model.init_caches(max_slots, max_seq)
+        if model.cfg.encoder_decoder:
+            if frames is None:
+                raise ValueError("encoder-decoder serving needs `frames`")
+            self.caches = model.init_caches(torch.as_tensor(frames, device=self.device),
+                                            max_seq)
+        else:
+            self.caches = model.init_caches(max_slots, max_seq)
         self.positions = np.zeros((max_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.pending: List[Request] = []
@@ -148,8 +156,11 @@ class Engine:
     def _reset_slot(self, slot: int) -> None:
         """Zero the slot in every leaf of the cache tree on reuse (units on
         axis 0, slots on 1): KV is masked by position anyway, but recurrent
-        (Mamba2) states would otherwise leak between requests."""
-        for t in pytree.tree_leaves(self.caches):
+        (Mamba2, xLSTM) states would otherwise leak between requests.  An
+        encoder-decoder engine zeroes only the self-attention KV and keeps
+        the cross-attention K/V (the slot's encoded clip)."""
+        tree = self.caches["self"] if self.model.cfg.encoder_decoder else self.caches
+        for t in pytree.tree_leaves(tree):
             t[:, slot].zero_()
 
     def _admit(self) -> None:

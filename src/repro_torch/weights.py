@@ -1,11 +1,13 @@
 """Moving parameters between the reference's tree and the port's modules.
 
 The reference's ``LM.init`` returns a nested dict whose ``"layers"`` leaves
-are stacked along a leading unit axis; the port keeps one module per unit
-(``layers.{i}.…``).  Leaves outside ``"layers"`` (the embedding, the head,
-the hybrid's one ``shared_attn`` param set) keep their shapes; a stacked
-leaf loses its unit axis (an MoE expert leaf (units, E, D, F) becomes
-rank 3).  ``params_from_jax`` turns the reference tree, as numpy
+are stacked along a leading unit axis (``WhisperModel.init``: its
+``"encoder"`` and ``"decoder"`` leaves, along the layer axis); the port
+keeps one module per unit (``layers.{i}.…``, ``encoder.{i}.…``).  Leaves
+outside those keys (the embedding, the head, the hybrid's one
+``shared_attn`` param set, whisper's positional tables) keep their shapes;
+a stacked leaf loses its unit axis (an MoE expert leaf (units, E, D, F)
+becomes rank 3).  ``params_from_jax`` turns the reference tree, as numpy
 arrays, into a state dict for ``LM.load_state_dict``; ``params_to_jax`` is
 its inverse.  The parity tests use both, so the two packages run on the
 same weights.
@@ -13,12 +15,18 @@ same weights.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-STACKED = "layers"
+STACKED = ("layers", "encoder", "decoder")
+
+
+def _stacked_key(name: str) -> Optional[str]:
+    """The stacked top-level key a parameter name lies under, if any."""
+    top = name.split(".", 1)[0]
+    return top if top in STACKED and "." in name else None
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -37,10 +45,11 @@ def params_from_jax(np_tree: Mapping[str, Any], device="cpu") -> Dict[str, torch
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(np_tree).items():
         arr = np.asarray(leaf)
-        if name.startswith(STACKED + "."):
-            rest = name[len(STACKED) + 1:]
+        top = _stacked_key(name)
+        if top:
+            rest = name[len(top) + 1:]
             for i in range(arr.shape[0]):
-                state[f"{STACKED}.{i}.{rest}"] = torch.tensor(arr[i], device=device)
+                state[f"{top}.{i}.{rest}"] = torch.tensor(arr[i], device=device)
         else:
             state[name] = torch.tensor(arr, device=device)
     return state
@@ -52,13 +61,14 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     stacked: Dict[str, Dict[int, np.ndarray]] = {}
     for name, t in state.items():
         arr = t.detach().cpu().numpy()
-        if name.startswith(STACKED + "."):
-            idx, rest = name[len(STACKED) + 1:].split(".", 1)
-            stacked.setdefault(rest, {})[int(idx)] = arr
+        top = _stacked_key(name)
+        if top:
+            idx, rest = name[len(top) + 1:].split(".", 1)
+            stacked.setdefault(f"{top}.{rest}", {})[int(idx)] = arr
         else:
             flat[name] = arr
-    for rest, parts in stacked.items():
-        flat[f"{STACKED}.{rest}"] = np.stack([parts[i] for i in sorted(parts)])
+    for name, parts in stacked.items():
+        flat[name] = np.stack([parts[i] for i in sorted(parts)])
     tree: Dict[str, Any] = {}
     for name, arr in flat.items():
         node = tree
@@ -72,4 +82,4 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 def reference_ndim(name: str, t: torch.Tensor) -> int:
     """Rank of the reference leaf a port parameter comes from: per-unit
     parameters gain the stacked unit axis."""
-    return t.dim() + (1 if name.startswith(STACKED + ".") else 0)
+    return t.dim() + (1 if _stacked_key(name) else 0)

@@ -1,9 +1,11 @@
-"""The MoE and Mamba2-hybrid model families of the port against the reference.
+"""The model families of the port against the reference.
 
-Reduced granite-moe-3b-a800m, qwen3-moe-30b-a3b and zamba2-2.7b on the
-CPU, on the reference's ``LM.init`` weights moved with
+Every reference config builds.  Reduced granite-moe-3b-a800m,
+qwen3-moe-30b-a3b, zamba2-2.7b, xlstm-1.3b and phi-3-vision-4.2b (text
+only) on the CPU, on the reference's ``init`` weights moved with
 ``weights.params_from_jax``: the parameter trees round-trip (the hybrid's
-unstacked top-level ``shared_attn``, the rank-3 expert leaves); the loss
+unstacked top-level ``shared_attn``, the rank-3 expert leaves, whisper's
+stacked ``encoder``/``decoder``); the loss
 agrees in f32 to 1e-5 and its grads to rtol 1e-4 (each absolute limit
 relative to the tensor's largest value), the loss in bf16 to 2e-2; three ``decode_step``s agree with the
 reference's (logits and every cache leaf); step-by-step decode reproduces
@@ -41,6 +43,7 @@ from repro.data import DataConfig, SyntheticLM  # noqa: E402
 from repro.launch import plan as rplan  # noqa: E402
 from repro.launch.mesh import make_host_mesh  # noqa: E402
 from repro.launch.steps import segment_plan as rsegment_plan  # noqa: E402
+from repro.models import build_model as rbuild_model  # noqa: E402
 from repro.models.transformer import LM as RLM  # noqa: E402
 from repro.serving import Engine as REngine  # noqa: E402
 import repro_torch  # noqa: E402
@@ -53,13 +56,13 @@ from repro_torch.launch import plan as pplan  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.mesh import REFERENCE_HBM_BYTES  # noqa: E402
 from repro_torch.launch.steps import segment_plan as psegment_plan  # noqa: E402
-from repro_torch.models import build_model, moe  # noqa: E402
+from repro_torch.models import WhisperModel, build_model, moe  # noqa: E402
 from repro_torch.serving import Engine  # noqa: E402
 from repro_torch.train import functional_loss  # noqa: E402
 from repro_torch.weights import params_from_jax, params_to_jax  # noqa: E402
 
 MOE, HYBRID = "granite-moe-3b-a800m", "zamba2-2.7b"
-ARCHS = [MOE, "qwen3-moe-30b-a3b", HYBRID]
+ARCHS = [MOE, "qwen3-moe-30b-a3b", HYBRID, "xlstm-1.3b", "phi-3-vision-4.2b"]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SEQ, BATCH = 32, 2
 N_LAYERS = 4  # zamba2: 2 units of 2 Mamba2 blocks + the shared block
@@ -92,7 +95,7 @@ def setup(arch, dtype="float32", n_layers=N_LAYERS):
     key = (arch, dtype, n_layers)
     if key not in _SETUPS:
         rcfg, pcfg = configs(arch, dtype, n_layers)
-        rlm = RLM(rcfg)
+        rlm = rbuild_model(rcfg)
         np_tree = jax.tree_util.tree_map(np.asarray, rlm.init(jax.random.PRNGKey(0)))
         plm = build_model(pcfg, device="cpu")
         plm.load_state_dict(params_from_jax(np_tree), strict=True)
@@ -124,18 +127,16 @@ def assert_trees_close(got, want, what="", rtol=None):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_build_model_builds_the_ported_families(arch):
     cfg = get_config(arch)
-    waiting = {"xlstm-1.3b": "xLSTM", "whisper-small": "encoder-decoder",
-               "phi-3-vision-4.2b": "extra_embeds"}
-    if arch in waiting:
-        with pytest.raises(NotImplementedError,
-                           match=f"{waiting[arch]}.*'Other model families'"):
-            build_model(reduced(cfg), device="cpu")
-        return
     model = build_model(reduced(cfg), device="cpu")
-    assert model.pattern == RLM(rreduced(rget_config(arch))).pattern
+    ref = rbuild_model(rreduced(rget_config(arch)))
+    if cfg.encoder_decoder:
+        assert isinstance(model, WhisperModel) and type(ref).__name__ == "WhisperModel"
+        assert len(model.encoder) == len(model.decoder) == ref.cfg.n_layers
+    else:
+        assert model.pattern == RLM(rreduced(rget_config(arch))).pattern == ref.pattern
 
 
-@pytest.mark.parametrize("arch", [MOE, HYBRID])
+@pytest.mark.parametrize("arch", [MOE, HYBRID, "whisper-small"])
 def test_params_round_trip_every_leaf(arch):
     _, np_tree, plm = setup(arch)
     back = params_to_jax(plm.state_dict())
@@ -148,6 +149,12 @@ def test_params_round_trip_every_leaf(arch):
     if arch == HYBRID:  # one shared param set, not stacked per unit
         assert state["shared_attn.in_proj.w"].shape == np_tree["shared_attn"]["in_proj"]["w"].shape
         assert "layers.0.b0_mamba.mamba.A_log" in state
+    elif arch == "whisper-small":  # two stacks, one module a layer on each side
+        L = N_LAYERS
+        assert np_tree["encoder"]["mlp"]["w_up"].shape == (L, *state["encoder.0.mlp.w_up"].shape)
+        assert np_tree["decoder"]["ln_x"]["bias"].shape == (L, *state[
+            f"decoder.{L - 1}.ln_x.bias"].shape)
+        assert state["enc_pos"].shape == np_tree["enc_pos"].shape
     else:
         w = state["layers.1.b0_attn_moe.moe.experts.w_gate"]
         assert w.dim() == 3 and np_tree["layers"]["b0_attn_moe"]["moe"]["experts"][

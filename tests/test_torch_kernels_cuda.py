@@ -175,12 +175,52 @@ def test_cuda_bf16_kernels_at_the_granite_shape(causal):
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
 
 
+# (B, H, KV, Sq, Sk, D, causal) of the model families' attention at full
+# width: whisper-small's encoder over 1500 frames and its cross-attention
+# (448 queries against them), both non-causal, and its causal decoder at
+# batch 8; phi-3-vision-4.2b's 576 patches + 1024 tokens at D 96
+FAMILY_SHAPES = {
+    "whisper_enc": (8, 12, 12, 1500, 1500, 64, False),
+    "whisper_cross": (8, 12, 12, 448, 1500, 64, False),
+    "whisper_dec": (8, 12, 12, 448, 448, 64, True),
+    "vision": (2, 32, 32, 1600, 1600, 96, True),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-2.7b"])
+@pytest.mark.parametrize("name", list(FAMILY_SHAPES))
+def test_cuda_bf16_kernels_at_the_family_shapes(name):
+    """Forward, dq and dk/dv at each family's shape on model-layout views,
+    causal or not as the model calls them, against the plain versions; dq
+    bitwise the same over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    *shape, causal = FAMILY_SHAPES[name]
+    q, k, v, do = (torch.tensor(x.transpose(0, 2, 1, 3).copy()).to("cuda", torch.bfloat16)
+                   .transpose(1, 2) for x in make(*shape, seed=19))
+    c = dict(causal=causal)
+    o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v, **c)
+    o, lse = fa.flash_attention_fwd(q, k, v, **c)
+    delta = ref.row_delta(o_ref, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do, **c)
+    want = [o_ref, ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do, **c),
+            *ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do, **c)]
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2)
+    for a, b in zip((o, dq, dk, dv), want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-2.7b",
+                                  "phi-3-vision-4.2b"])
 def test_cuda_reduced_family_launchers_train(arch):
-    """``repro_torch.launch.train --reduced`` of the MoE and the hybrid on
-    the card, in bf16 at head dim 16, through all three kernels: one
-    attention block a unit."""
+    """``repro_torch.launch.train --reduced`` of the MoE, the hybrid and the
+    vision stub's backbone (text-only) on the card, in bf16 at head dim 16,
+    through all three kernels: one attention block a unit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.launch.train import main

@@ -27,6 +27,7 @@ from repro.configs import get_config as rget_config  # noqa: E402
 from repro.configs import reduced as rreduced  # noqa: E402
 from repro.launch import serve as rserve  # noqa: E402
 from repro.models.attention import decode_attention as rdecode_attention  # noqa: E402
+from repro.models import build_model as rbuild_model  # noqa: E402
 from repro.models.transformer import LM as RLM  # noqa: E402
 from repro.serving import Engine as REngine  # noqa: E402
 import repro_torch  # noqa: E402
@@ -142,16 +143,20 @@ def test_decode_step_matches_reference(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_decode_step_smoke(arch):
     """``tests/test_models_smoke.py::test_decode_step_smoke`` for the port:
-    the dense archs decode one step with finite logits and the reference's
-    cache tree; the others raise naming their ROADMAP item."""
+    every arch decodes one step with finite logits and the reference's
+    cache tree (whisper's from frames through its encoder)."""
     cfg = reduced(get_config(arch))
-    try:
-        model = build_model(cfg, device="cpu")
-    except NotImplementedError as e:
-        assert "Other model families" in str(e)
-        return
-    caches = model.init_caches(B, 32)
-    want = jax.eval_shape(lambda: RLM(rreduced(rget_config(arch))).init_caches(B, 32))
+    model = build_model(cfg, device="cpu")
+    rcfg = rreduced(rget_config(arch))
+    if cfg.encoder_decoder:
+        rmodel = rbuild_model(rcfg)
+        frames = np.zeros((B, cfg.frontend_seq, cfg.d_model), np.float32)
+        caches = model.init_caches(torch.tensor(frames), 32)
+        want = jax.eval_shape(lambda: rmodel.init_caches(
+            rmodel.init(jax.random.PRNGKey(0)), jnp.asarray(frames), 32))
+    else:
+        caches = model.init_caches(B, 32)
+        want = jax.eval_shape(lambda: RLM(rcfg).init_caches(B, 32))
     spec = jax.tree_util.tree_map(
         lambda t: (tuple(t.shape), str(t.dtype).removeprefix("torch.")), caches)
     assert spec == jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)), want)
@@ -269,8 +274,7 @@ def test_engine_matches_reference(engine_setup, temperature):
 def test_engine_raises_for_what_is_not_ported(engine_setup):
     _, _, model = engine_setup
     for kw, item in ((dict(mesh=object()), "Multi-device"),
-                     (dict(step_shardings=object()), "Multi-device"),
-                     (dict(frames=torch.zeros(1)), "Other model families")):
+                     (dict(step_shardings=object()), "Multi-device")):
         with pytest.raises(NotImplementedError, match=item):
             Engine(model, max_slots=1, max_seq=8, **kw)
 
