@@ -51,7 +51,20 @@ non-zero and print no result):
              lower measured peak; then two ``Trainer(plan_budget=...)`` steps
              beside two unplanned ones from the same weights and batches
              (same losses and grad norms, re-planning nothing);
-8. analysis — the analysis layer on phase planned's workload: the effect
+8. mesh    — sharded planning and data parallelism: the same loss at batch
+             16 over an ``{data: 8}`` dict mesh (per-device all-cached peak
+             and minimal budget against phase planned's, digests apart
+             from ``{data: 4}``'s); on a one-rank NCCL group the sharded
+             planned twin on DTensors (bitwise sharded vanilla and phase
+             planned's twin, the kernels' launches), the Trainer on the
+             mesh plain and with ``compress_grads`` (losses, peaks,
+             collectives) and ``remesh`` from no mesh (the next step
+             bitwise a Trainer built on the mesh); the launcher under
+             ``torchrun --nproc_per_node 1`` (losses bitwise phase
+             launcher's, step time, peak, collectives); and two
+             processes sharing the card over gloo at 2 units against one
+             process on the global batch;
+9. analysis — the analysis layer on phase planned's workload: the effect
              pass (the 8 flash nodes opaque and pinned, nothing else
              tainted); ``plan_function(analyze_effects=True, verify=True,
              verify_hlo=True)`` at the exact minimal budget (no flash node
@@ -61,7 +74,7 @@ non-zero and print no result):
              ``check_plan`` with the reference's codes; the launcher's
              verification count; and ``python -m repro_torch.analysis
              --traced quickstart --hlo --device cuda``, which must exit 0;
-9. serve   — ``repro_torch.launch.serve`` at full stablelm-3b width and
+10. serve   — ``repro_torch.launch.serve`` at full stablelm-3b width and
              depth: 16 requests of 64 new tokens through 8 slots of a
              2048-token KV cache; engine steps, median and p90 step time,
              output tok/s, peak memory, KV-cache bytes and the kernels'
@@ -70,34 +83,34 @@ non-zero and print no result):
              finite; then teacher forcing at the same width: 128 tokens
              decoded step by step against ``LM.forward`` (which launches
              ``flash_fwd``), in f32 and in bf16;
-10. moe    — granite-moe-3b-a800m (MoE, 40 experts top-8, attention D 64
+11. moe    — granite-moe-3b-a800m (MoE, 40 experts top-8, attention D 64
              with GQA 24:8): the training launcher at full width and depth
              for 3 steps (launches, peak, the share of routes dropped at
              capacity), ``plan_function`` on its loss at 4 units (loss and
              grads bitwise, the extra ``flash_fwd`` launches, a lower
              peak), the serving launcher as phase serve runs it, and
              decode against the forward on 8 tokens (no route dropped);
-11. hybrid — zamba2-2.7b (9 units of 6 Mamba2 blocks and the shared
+12. hybrid — zamba2-2.7b (9 units of 6 Mamba2 blocks and the shared
              attention block on ``concat(h, h0)``): the launcher, the
              serving launcher, decode against the forward on 128 tokens
              (the limits hold each block decoded on the forward's inputs,
              the logits the greedy agreement), and ``plan_function`` on
              its non-chain graph at 1 unit;
-12. xlstm  — xlstm-1.3b (6 units of 7 mLSTM blocks and 1 sLSTM block,
+13. xlstm  — xlstm-1.3b (6 units of 7 mLSTM blocks and 1 sLSTM block,
              heads of 512, no attention): the launcher at full width and
              depth, a profiled step, the serving launcher, decode against
              the forward (held block by block), ``plan_function`` at 1 unit
              on 512 tokens; no kernel launch anywhere;
-13. whisper — whisper-small (12 + 12 layers): the Trainer on frames at
+14. whisper — whisper-small (12 + 12 layers): the Trainer on frames at
              batch 8 (1500 frames, 448 tokens; the launcher has no frames),
              the serving launcher with one clip a slot (the encoder runs
              once), decode against ``decode_train``, and ``plan_function``
              on its non-chain graph at full depth;
-14. vision — phi-3-vision-4.2b: the Trainer on batches carrying the
+15. vision — phi-3-vision-4.2b: the Trainer on batches carrying the
              576-patch prefix (S 1600) under ``launch.steps.segment_plan``'s
              plan for that length, the serving launcher (text-only), and
              ``plan_function`` at 2 units with the prefix;
-15. result — the ``kernels`` JSON line, the card's name and power limit,
+16. result — the ``kernels`` JSON line, the card's name and power limit,
              and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and outside a checkout.
@@ -121,6 +134,12 @@ TRADE_UNITS = 8
 # the planned phase's depth: planning time grows steeply with the node count
 # (603 nodes at 8 units); width is never cut
 PLANNED_UNITS = 8
+# phase mesh: the accounting's mesh and global batch (the batch sharded over
+# data: 2 sequences a device, as phase planned's unsharded batch), and the
+# depth of the two processes that share the card over gloo
+MESH_ACCOUNTING = {"data": 8}
+MESH_GLOBAL_BATCH = 16
+MESH_TWO_PROCESS_LAYERS = 2
 SERVE_ARGS = ["--full", "--requests", "16", "--slots", "8", "--max-seq", "2048",
               "--new-tokens", "64"]
 TEACHER_TOKENS = 128
@@ -856,7 +875,7 @@ def planned_setup(n: int = PLANNED_UNITS):
     return model, stream, batch, loss_fn, step_loss, params
 
 
-def phase_planned(results):
+def phase_planned(results, state):
     """``plan_function`` on the full-width loss, against plain autograd."""
     import dataclasses
     import gc
@@ -939,6 +958,9 @@ def phase_planned(results):
               f"launches {json.dumps(c)}; {ms:.1f} ms")
     print(f"[planned] loss bitwise {torch.equal(l0, l1)}")
     grads_ok = grads_agree("planned", [g1[k] for k in g0], list(g0.values()))
+    # phase mesh holds its sharded twin against this one's loss and grads
+    state["planned"] = dict(loss=l1, grads=g1, peak=vanilla_peak, nodes=g.n,
+                            budget=lowered.report.budget)
     del g0, g1
     check(torch.equal(l0, l1), "planned loss differs from vanilla")
     check(grads_ok, "planned grads differ from vanilla beyond rtol 1e-3")
@@ -990,6 +1012,233 @@ def phase_planned(results):
           f"worst relative error {worst:.3e}")
     check(la[0] == lb[0], "the planned Trainer's first loss differs from the unplanned one")
     check(worst <= 1e-3, "the planned Trainer's losses or grad norms differ beyond rtol 1e-3")
+
+
+def torchrun(nproc: int, args: list, timeout: float = 600) -> dict:
+    """``torchrun --standalone --nproc_per_node nproc -m repro_torch.launch.train
+    args`` in a child process group; returns rank 0's ``summary:`` JSON."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), "-m", "repro_torch.launch.train", *args]
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("summary: ")]
+    if proc.returncode != 0 or not lines:
+        raise PhaseError(f"torchrun {' '.join(args)} exited {proc.returncode}:\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1][len("summary: "):])
+
+
+def phase_mesh(results, state):
+    """Sharded planning and the data-parallel Trainer on the card: the
+    per-device accounting of the full-width trace on an ``{axis: size}``
+    mesh; on a one-rank NCCL group the sharded planned twin (DTensors)
+    against sharded vanilla and phase planned's unsharded twin, the
+    compressed and re-meshed Trainer; the launcher under ``torchrun`` (one
+    rank) against phase launcher; two gloo processes sharing the card."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch import nn
+    from torch.distributed.device_mesh import init_device_mesh
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    core = importlib.import_module("repro_torch.core")
+    fxg = importlib.import_module("repro_torch.core.fx_graph")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    data = importlib.import_module("repro_torch.data")
+    train = importlib.import_module("repro_torch.train")
+    planned_state = state.pop("planned")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    model, stream, batch, loss_fn, step_loss, params = planned_setup()
+    specs = (None, ("data", None))
+
+    # accounting: the global batch over MESH_ACCOUNTING, nothing executed
+    big = data.SyntheticLM(data.DataConfig(model.cfg.vocab_size, 1024, MESH_GLOBAL_BATCH))
+    big_batch = {k: torch.as_tensor(v, device=dev) for k, v in big.batch(0).items()}
+    t0 = time.perf_counter()
+    carrier = lowering.TracedCarrier.trace(step_loss, (params, big_batch), mesh=MESH_ACCOUNTING,
+                                           in_shardings=specs)
+    trace_s = time.perf_counter() - t0
+    g = carrier.to_graph()
+    whole = fxg.from_graph_module(carrier.fx.gm).graph
+    four = fxg.from_graph_module(carrier.fx.gm, mesh={"data": 4},
+                                 in_specs=list(carrier.in_specs)).graph
+    peak, peak_whole = core.vanilla_peak(g, liveness=False), core.vanilla_peak(whole, liveness=False)
+    planner = core.get_default_planner()
+    t0 = time.perf_counter()
+    mfb = planner.min_feasible_budget(g)
+    rep = planner.plan(g, mfb)
+    plan_s = time.perf_counter() - t0
+    plan = rep.plan
+    digests = {core.graph_digest(x) for x in (g, four, whole)}
+    print(f"[mesh] accounting: batch {MESH_GLOBAL_BATCH} x 1024 over {MESH_ACCOUNTING}, "
+          f"{PLANNED_UNITS} units: {g.n} nodes, traced in {trace_s:.2f} s; per-device "
+          f"all-cached peak {peak:.6e} B against phase planned's unsharded batch-2 "
+          f"{planned_state['peak']:.6e} B ({planned_state['nodes']} nodes) and the "
+          f"global batch's {peak_whole:.6e} B")
+    print(f"[mesh] minimal per-device budget {mfb:.6e} B (phase planned's unsharded: "
+          f"{planned_state['budget']:.6e} B), planned in {plan_s:.2f} s: peak "
+          f"{plan.peak_memory:.6e} B, overhead {plan.overhead:g}, {plan.num_segments} "
+          f"segments, {len(set().union(*(s.recompute for s in plan.segments)))} nodes "
+          f"recomputed; digests of {MESH_ACCOUNTING}, {{data: 4}} and unsharded all "
+          f"distinct: {len(digests) == 3}")
+    check(len(digests) == 3, "the sharded traces' digests do not differ")
+    # the batch over the data axis leaves each device phase planned's batch
+    check(peak == planned_state["peak"] and mfb == planned_state["budget"],
+          "the per-device peak or minimal budget is not that of the per-device batch")
+    del carrier, g, whole, four, big_batch
+    gc.collect()
+
+    def run(fn, *args):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return loss, grads, torch.cuda.max_memory_allocated() - before, dict(fa.LAUNCHES), ms
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        twin = lowering.plan_function(step_loss, None, mesh=mesh, in_shardings=specs,
+                                      planner=planner)
+        low = twin.lowered_for(params, batch)
+        sh_s = time.perf_counter() - t0
+        flash = {nd.idx for nd in low.carrier.to_graph().nodes if nd.kind == "flash_attention"}
+        rec_flash = flash & set().union(*(s.recompute for s in low.plan.segments))
+        twin(params, batch)  # warm-up
+        l0, g0, peak0, c0, ms0 = run(lowering.vanilla_traced_value_and_grad(low.carrier),
+                                     params, batch)
+        l1, g1, peak1, c1, ms1 = run(twin, params, batch)
+        for tag, loss, pk, c, ms in (("vanilla", l0, peak0, c0, ms0),
+                                     ("planned", l1, peak1, c1, ms1)):
+            print(f"[mesh] one NCCL rank, sharded {tag:7s}: loss {local(loss).item():.8f} "
+                  f"({type(loss).__name__} {list(getattr(loss, 'placements', []))}); peak "
+                  f"above resident state {pk} B; launches {json.dumps(c)}; {ms:.1f} ms")
+        bit_vanilla = torch.equal(local(l0), local(l1)) and all(
+            torch.equal(local(g1[k]), local(g0[k])) for k in g0)
+        bit_unsharded = torch.equal(local(l1).cpu(), planned_state["loss"]) and all(
+            torch.equal(local(g1[k]), planned_state["grads"][k]) for k in g1)
+        print(f"[mesh] sharded planned twin (traced and planned in {sh_s:.2f} s, "
+              f"{len(rec_flash)} flash nodes recomputed, the same plan as phase planned's: "
+              f"{low.report.budget == planned_state['budget']}): bitwise sharded vanilla "
+              f"{bit_vanilla}, bitwise phase planned's unsharded twin {bit_unsharded}")
+        check(bit_vanilla, "the sharded planned twin differs from sharded vanilla")
+        check(bit_unsharded, "the sharded planned twin differs from the unsharded one")
+        check(c1["flash_fwd"] - c0["flash_fwd"] == len(rec_flash) and c1["flash_bwd_dq"]
+              == len(flash) and c1["flash_bwd_dkv"] == len(flash),
+              "the sharded twin's launches do not match its plan")
+        for name in fa.KERNELS:
+            results[name]["mesh_launches"] = c1[name]
+        del g0, g1, l0, l1, low, twin, planned_state
+
+        # the Trainer on the mesh: plain, compressed, and re-meshed
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        weights = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+        def trainer(mesh=None, steps=3, **kw):
+            gc.collect()
+            torch.cuda.empty_cache()
+            for n in names:  # plain parameters again, from the same weights
+                mod, _, leaf = n.rpartition(".")
+                model.get_submodule(mod)._parameters[leaf] = nn.Parameter(weights[n].clone())
+            torch.cuda.reset_peak_memory_stats()
+            return train.Trainer(loss_fn, model, train.TrainConfig(
+                total_steps=steps, log_every=0, **kw), device=dev, mesh=mesh)
+
+        runs = {}
+        for tag, kw in (("plain", {}), ("compressed", dict(compress_grads=True))):
+            tr = trainer(mesh, **kw)
+            out = tr.run(iter(stream))
+            runs[tag] = out
+            print(f"[mesh] Trainer on the mesh, {tag:10s}: losses {out['losses']}, step "
+                  f"seconds {[round(t, 4) for t in out['step_seconds']]}, peak "
+                  f"{torch.cuda.max_memory_allocated()} B, collectives {tr.comm_stats}")
+            check(tr.skipped == 0 and all(math.isfinite(x) for x in out["losses"]),
+                  f"the {tag} Trainer on the mesh skipped a step")
+            del tr
+        worst = max(abs(a - b) / abs(b) for a, b in zip(runs["compressed"]["losses"],
+                                                        runs["plain"]["losses"]))
+        print(f"[mesh] compressed against plain losses: worst relative gap {worst:.3e}")
+        # the codec's int8 rounding moves the later losses, a little
+        check(0 < worst < 1e-3, "compressed gradients left the losses unchanged or moved "
+              "them by 1e-3 or more")
+        tr = trainer(None, steps=1)
+        first = tr.run(iter(stream))
+        tr.remesh(mesh)
+        tr.cfg = dataclasses.replace(tr.cfg, total_steps=2)
+        second = tr.run(iter([stream.batch(1)]))
+        moved = first["losses"] + second["losses"], first["grad_norms"] + second["grad_norms"]
+        built = runs["plain"]["losses"][:2], runs["plain"]["grad_norms"][:2]
+        print(f"[mesh] remesh from no mesh onto the rank's mesh after step 1: losses "
+              f"{moved[0]}, against a Trainer built on the mesh {built[0]}; bitwise "
+              f"{moved == built}")
+        check(moved == built, "the step after remesh differs from a Trainer built on the mesh")
+        del tr
+    finally:
+        dist.destroy_process_group()
+    del model, params, batch, stream, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher under torchrun on one rank, against phase launcher
+    t0 = time.perf_counter()
+    one = torchrun(1, TRAIN_ARGS)
+    want = state["launcher"]["losses"]
+    print(f"[mesh] torchrun --nproc_per_node 1 launcher ({time.perf_counter() - t0:.1f} s): "
+          f"losses {one['losses']} against phase launcher's {want}; bitwise "
+          f"{one['losses'] == want}; step seconds {[round(t, 4) for t in one['step_seconds']]}; "
+          f"peak {one['peak_bytes']} B; collectives a step {one['collectives']}; launches "
+          f"{json.dumps(one['launches'])}")
+    check(one["losses"] == want, "the one-rank torchrun launcher's losses differ")
+    for name in fa.KERNELS:
+        results[name]["torchrun_launches"] = one["launches"][name]
+
+    # two gloo processes sharing the card, against one process on the global
+    # batch (the two ranks' slices, concatenated), from the same init
+    args = TRAIN_ARGS + ["--layers", str(MESH_TWO_PROCESS_LAYERS)]
+    t0 = time.perf_counter()
+    two = torchrun(2, args)  # two ranks, one card: the launcher takes gloo
+    two_s = time.perf_counter() - t0
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    adamw = importlib.import_module("repro_torch.optim.adamw")
+    cfg = dataclasses.replace(configs.get_config("stablelm-3b"), n_layers=MESH_TWO_PROCESS_LAYERS)
+    model = models.build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    steps = len(two["losses"])
+    tr = train.Trainer(lambda m, b: m.loss(b), model, train.TrainConfig(
+        total_steps=steps, log_every=0, optimizer=adamw.AdamWConfig(
+            lr=3e-4, warmup_steps=2, total_steps=steps)), device=dev)
+    dc = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=2, num_hosts=2)
+    single = tr.run(data.global_batch_for_test(dc, i) for i in range(steps))
+    worst = max(abs(a - b) / abs(b) for a, b in zip(two["losses"], single["losses"]))
+    # one all-reduce of every f32 gradient and one of the loss, a step
+    grad_bytes = sum(p.numel() * p.element_size() for p in model.parameters()
+                     if p.requires_grad)
+    sent = two["collectives"].get("all_reduce", {}).get("payload_bytes")
+    print(f"[mesh] two gloo processes on the card, {MESH_TWO_PROCESS_LAYERS} units "
+          f"({two_s:.1f} s): losses {two['losses']} against one process on the global batch "
+          f"{single['losses']} (worst relative gap {worst:.3e}); step seconds "
+          f"{[round(t, 4) for t in two['step_seconds']]}; collectives a step "
+          f"{two['collectives']} against the gradients' {grad_bytes} B and the loss's 4 B")
+    check(sent == grad_bytes + 4, "the two processes did not all-reduce every gradient once")
+    check(worst < 1e-4, "the two-process losses differ from the global batch's beyond 1e-4")
+    del tr, model
 
 
 def phase_analysis(results, state):
@@ -2195,7 +2444,8 @@ def main() -> int:
         ("witness", lambda: phase_witness(state)),
         ("profile", lambda: phase_profile(state)),
         ("trade", lambda: phase_trade(state)),
-        ("planned", lambda: phase_planned(results)),
+        ("planned", lambda: phase_planned(results, state)),
+        ("mesh", lambda: phase_mesh(results, state)),
         ("analysis", lambda: phase_analysis(results, state)),
         ("strategies", lambda: phase_strategies(results)),
         ("costs", lambda: phase_costs(results)),

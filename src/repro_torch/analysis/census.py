@@ -31,6 +31,19 @@ twin really runs, watched as it runs.
    ``temp_bytes`` as the vanilla ceiling.  The CPU allocator keeps no
    statistics, so there the gate only warns ``memory-analysis-unavailable``.
 
+3. **Collective counter** — :class:`CountCollectives` records every
+   ``_c10d_functional`` collective a step issues (the all-reduce of a
+   replicated parameter's ``Partial`` gradient, the loss's reduction, a
+   DTensor reshard), by op: calls, payload bytes (what one rank hands the
+   collective) and ring wire bytes per rank (``ring_wire_bytes``: an
+   all-reduce sends 2(n−1)/n of its payload, an all-gather, reduce-scatter
+   or all-to-all (n−1)/n of the full tensor).  It is the port's source of
+   the reference's ``hlo_comm_bytes`` (``core.replay``), which reads the
+   optimized HLO's collectives.  It passes DTensor ops through to DTensor's
+   own dispatch (returning ``NotImplemented``, as torch's
+   ``CommDebugMode`` does), so the collectives DTensor issues inside an op
+   are counted too.
+
 What has no twin: the HLO-text helpers (``hlo_text.py``: computation
 splitting, trip counts, ``reduce_precision`` save markers) — there is no
 HLO to parse.  The compiled cost extraction (``extract_segment_costs``)
@@ -100,6 +113,71 @@ class CountOps(TorchDispatchMode):
                     self.rerun[node] += 1
         self.heavy += name in ATEN_HEAVY
         return func(*args, **(kwargs or {}))
+
+
+def storage_key(t: torch.Tensor) -> int:
+    """The address of the storage ``t`` lives in on this device (a
+    DTensor's local shard, read without dispatching an op)."""
+    local = getattr(t, "_local_tensor", None)
+    return (t if local is None else local).untyped_storage().data_ptr()
+
+
+#: ``_c10d_functional`` collectives and how many times (n−1)/n of the
+#: relevant tensor's bytes a ring sends per rank
+_COLLECTIVES = {
+    "all_reduce": 2.0, "all_reduce_coalesced": 2.0,
+    "all_gather_into_tensor": 1.0, "all_gather_into_tensor_coalesced": 1.0,
+    "reduce_scatter_tensor": 1.0, "reduce_scatter_tensor_coalesced": 1.0,
+    "all_to_all_single": 1.0, "broadcast": 1.0,
+}
+
+
+def ring_wire_bytes(op: str, payload: int, out_bytes: int, group: int) -> float:
+    """Bytes one rank sends in a ring implementation of ``op``: an
+    all-reduce 2(n−1)/n of its payload; an all-gather (n−1)/n of its output
+    (the gathered tensor); a reduce-scatter, all-to-all or broadcast
+    (n−1)/n of its input."""
+    if group <= 1:
+        return 0.0
+    full = out_bytes if op.startswith("all_gather") else payload
+    return _COLLECTIVES[op] * (group - 1) / group * full
+
+
+def _group_size(group_name: Any) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(group_name).size()
+
+
+class CountCollectives(TorchDispatchMode):
+    """Counts the ``_c10d_functional`` collectives dispatched while active:
+    ``stats[op] = {"calls", "payload_bytes", "wire_bytes"}`` per rank."""
+
+    def __init__(self):
+        super().__init__()
+        self.stats: Dict[str, Dict[str, float]] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(getattr(t, "__name__", "") == "DTensor" for t in types):
+            return NotImplemented  # let DTensor desugar the op into collectives
+        out = func(*args, **(kwargs or {}))
+        ns = getattr(func, "namespace", "")
+        op = op_name(func).split("::")[-1]
+        if ns == "_c10d_functional" and op in _COLLECTIVES:
+            kwargs = kwargs or {}
+            group = kwargs.get("group_name", args[-1])
+            payload = sum(t.numel() * t.element_size()
+                          for t in pytree.tree_leaves(args[0]) if isinstance(t, torch.Tensor))
+            out_bytes = sum(t.numel() * t.element_size()
+                            for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor))
+            rec = self.stats.setdefault(op, {"calls": 0, "payload_bytes": 0, "wire_bytes": 0.0})
+            rec["calls"] += 1
+            rec["payload_bytes"] += payload
+            rec["wire_bytes"] += ring_wire_bytes(op, payload, out_bytes, _group_size(group))
+        return out
+
+    def total(self, key: str = "payload_bytes") -> float:
+        return sum(r[key] for r in self.stats.values())
 
 
 def unpacked_recompute(carrier: Any, plan: ExecutionPlan, args: Sequence[Any]) -> FrozenSet[int]:
@@ -201,7 +279,7 @@ def temp_bytes(fn: Callable[..., Any], args: Sequence[Any]) -> Optional[int]:
     out = fn(*args)
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
-    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+    storages = {storage_key(t): getattr(t, "_local_tensor", t).untyped_storage().nbytes()
                 for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor)}
     del out
     return int(peak - base - sum(storages.values()))
@@ -530,6 +608,7 @@ __all__: Tuple[str, ...] = (
     "DRIFT_ABS_SLACK",
     "DRIFT_REL",
     "HEAVY_NODE_KINDS",
+    "CountCollectives",
     "CountOps",
     "HeavyCensus",
     "HloAnalysis",

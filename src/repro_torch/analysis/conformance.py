@@ -28,7 +28,10 @@ recovers what the twin really saves, three ways:
   is caught in both directions.
 
 The run needs concrete arguments: ``args``, or ``census.example_args`` of
-the trace.  It forks the RNG, so the caller's draws are unchanged.
+the trace.  It forks the RNG, so the caller's draws are unchanged.  A
+sharded carrier is checked the same way: on an ``{axis: size}`` dict the
+twin runs on plain tensors, on a ``DeviceMesh`` on DTensors (storages are
+those of the local shards).
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def _watch(carrier: Any, fn: Callable[..., Any], args: Sequence[Any],
     whose ops ran again inside the backward, and those whose outputs
     autograd packed outside the checkpoint regions.  Adds an error finding
     and returns None if ``fn`` is no ``"fx"`` twin or fails."""
-    from .census import CountOps, _device_of, _forked_rng
+    from .census import CountOps, _device_of, _forked_rng, storage_key
 
     node_now = getattr(fn, "node_now", None)
     if node_now is None:
@@ -68,12 +71,12 @@ def _watch(carrier: Any, fn: Callable[..., Any], args: Sequence[Any],
             node = node_now()
             if node is not None and torch._C._current_graph_task_id() == -1:
                 for t in _leaves(out):
-                    made[t.untyped_storage().data_ptr()] = owner.get(node)
+                    made[storage_key(t)] = owner.get(node)
             return out
 
     def pack(t):
         # looked up now: the allocator reuses a freed node's storage later
-        v = made.get(t.untyped_storage().data_ptr())
+        v = made.get(storage_key(t))
         if v is not None:
             packed.add(v)
         return t

@@ -19,9 +19,8 @@ verifier bug and a solver bug can't cancel:
   pricing) and compared against ``plan.peak_memory`` and the budget;
 * overhead — eq. (1)'s ``T(V \\ U_k)`` re-summed directly;
 * ``M_v`` — each node's bytes re-derived from the fake values of its fx
-  node's outputs (``fx_graph.tensor_bytes``).  Sharded carriers wait for
-  ROADMAP.md module queue, item 'Multi-device', so the bytes are whole-tensor
-  bytes.
+  node's outputs (``fx_graph.tensor_bytes``); on a mesh-traced carrier the
+  per-device shard bytes under the trace's propagated specs.
 """
 
 from __future__ import annotations
@@ -300,21 +299,25 @@ def check_graph_memory(fx: FxGraph) -> Report:
     """Re-derive every node's ``M_v`` from its fx node's output values.
 
     Each node's bytes are the bytes of the fake tensors its producing op
-    returned in the trace (``fx_graph.tensor_bytes``, at least 1).  Catches
-    stale graphs (edited costs) before a budget is trusted.
+    returned in the trace (``fx_graph.tensor_bytes``, at least 1); for a
+    mesh-traced carrier, the ceil-divided shard bytes under the propagated
+    specs (``fx_graph.node_memory``).  Catches stale graphs (edited costs,
+    mismatched specs) before a per-device budget is trusted.
     """
-    from ..core.fx_graph import tensor_bytes
+    from ..core.fx_graph import node_memory
 
     report = Report(checker="graph-memory")
     g = fx.graph
     for idx, node in enumerate(fx.nodes):
-        mem = float(tensor_bytes(node.meta.get("val")) or 1)
+        specs = fx.node_specs[idx] if fx.node_specs is not None else None
+        mem = float(node_memory(node.meta.get("val"), specs, fx.axis_sizes)[0])
         if mem != g.mem_v[idx]:
             report.add(
                 "error",
                 "memory-mismatch",
                 f"{g.nodes[idx].name}: graph M_v={g.mem_v[idx]:.6g} but the "
-                f"node's output values give {mem:.6g} bytes",
+                f"node's output values give {mem:.6g} bytes"
+                + (" per device" if specs is not None else ""),
                 node=idx,
             )
     return report

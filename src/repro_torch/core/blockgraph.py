@@ -6,8 +6,9 @@ with an ``init(generator, *input_shapes)``.  From a BlockGraph the framework
 derives, without running the model on real data, the paper's ``Graph``
 (``M_v`` from fake-mode output shapes, ``T_v`` from the 10/1 model or
 analytic FLOPs) and runs it vanilla or under a plan (``core.lowering``).
-The reference's ``out_sharding`` annotation waits for ROADMAP.md module
-queue, item 'Multi-device'.
+A block's ``out_sharding`` annotation budgets it at per-device bytes under
+a mesh, as in the reference, and the ``"segment"`` lowering pins the
+output onto it on a ``DeviceMesh`` (``parallel.sharding.shard``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ class Block:
     inputs: names of producer blocks or graph inputs.
     heavy: paper cost model — True → T_v = 10, else 1.
     flops: optional analytic FLOPs for the "flops" cost model.
+    out_sharding: optional sharding of the block's output — a spec tuple
+      of mesh axes, or a tuple of logical axis names (``"batch"``, …)
+      resolved under the active ``parallel.sharding`` rules.
     """
 
     name: str
@@ -40,6 +44,22 @@ class Block:
     init: Optional[Callable[..., Any]] = None
     heavy: bool = True
     flops: Optional[float] = None
+    out_sharding: Optional[Tuple[Any, ...]] = None
+
+
+def block_spec(block: Block, shape: Tuple[int, ...], axis_sizes: Dict[str, int]) -> Tuple:
+    """A Block's ``out_sharding`` annotation → a concrete spec: logical
+    names resolve under the rules; a mesh axis that is no logical name
+    (``"data"``, ``"pod"``) names itself, as in a ``PartitionSpec``."""
+    from ..parallel.sharding import get_rules, resolve_spec
+
+    sh = block.out_sharding
+    if sh is None:
+        return ()
+    rules = dict(get_rules())
+    for a in axis_sizes:
+        rules.setdefault(a, a)
+    return resolve_spec(tuple(sh), axis_sizes, shape=shape, rules=rules)
 
 
 def fake_values(mode: FakeTensorMode, tree: Any) -> Any:
@@ -103,10 +123,19 @@ class BlockGraph:
     # --------------------------------------------------------- planner input
 
     def to_graph(self, params: Dict[str, Any], inputs: Dict[str, Any],
-                 cost_model: str = "paper") -> Graph:
-        """Export the paper's G=(V,E) with fake-mode M_v and the chosen T_v."""
+                 cost_model: str = "paper", mesh: Any = None) -> Graph:
+        """Export the paper's G=(V,E) with fake-mode M_v and the chosen T_v.
+
+        With ``mesh`` (a ``DeviceMesh`` or ``{axis: size}`` dict), blocks
+        annotated with ``out_sharding`` are budgeted at **per-device**
+        bytes through ``parallel.sharding``."""
         if cost_model not in ("paper", "flops"):
             raise ValueError(cost_model)
+        axis_sizes = None
+        if mesh is not None:
+            from ..parallel.sharding import axis_sizes_of
+
+            axis_sizes = axis_sizes_of(mesh)
         nodes: List[Node] = []
         edges: List[Tuple[int, int]] = []
         idx_of: Dict[str, int] = {}
@@ -120,8 +149,14 @@ class BlockGraph:
                 else:
                     t = 10.0 if b.heavy else 1.0
                 idx = len(nodes)
-                nodes.append(Node(idx, b.name, t, float(max(tensor_bytes(out), 1)),
-                                  "block"))
+                mem = tensor_bytes(out)
+                if axis_sizes is not None and b.out_sharding is not None:
+                    from ..parallel.sharding import sharded_aval_bytes
+
+                    mem = sum(sharded_aval_bytes(t, block_spec(b, tuple(t.shape), axis_sizes),
+                                                 axis_sizes)
+                              for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor))
+                nodes.append(Node(idx, b.name, t, float(max(mem, 1)), "block"))
                 idx_of[b.name] = idx
                 for i in b.inputs:
                     if i in idx_of:

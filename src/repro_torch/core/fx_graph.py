@@ -37,6 +37,17 @@ Cost models, as in the reference: ``"paper"`` (T_v = 10 for the matmul/conv
 family and the flash op, 1 otherwise) and ``"flops"`` (matmul 2·M·N·K,
 convolution 2·out·Cin·k, flash attention 4·B·H·Sq·Sk·D, halved when causal,
 elementwise = output elements).
+
+``M_v`` is **per device** when a mesh and input shardings are given (the
+paper's budget B is the memory of one accelerator, §3), as in the
+reference: specs are propagated through the aten graph
+(``repro_torch.parallel.sharding.propagate_node_specs``, conservative
+replicated fallback) and each node's bytes are its outputs' ceil-divided
+shard bytes; under ``"flops"`` the same shard count divides ``T_v``.  The
+mesh is a ``DeviceMesh`` or a plain ``{axis: size}`` dict (no process
+group needed for planning).  The trace itself is always of the global
+function: DTensor arguments are traced as fake tensors of their global
+shape.
 """
 
 from __future__ import annotations
@@ -102,6 +113,12 @@ class FxGraph:
     #: every fx node → the graph node it belongs to (folded views and
     #: getitems map to their base's node; inputs and views of inputs to None)
     owner: Dict[fx.Node, Optional[int]]
+    #: per-graph-node output specs when traced under a mesh (aligned with
+    #: ``nodes``; None for an unsharded trace)
+    node_specs: Optional[List[Tuple]] = None
+    #: mesh axis name → size of a sharded trace ({} otherwise): lets the
+    #: verifier re-derive per-device bytes
+    axis_sizes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def output(self) -> fx.Node:
@@ -122,10 +139,37 @@ def is_view(node: fx.Node) -> bool:
     return node.target is operator.getitem or op_name(node.target) in ATEN_VIEW_OPS
 
 
-def from_graph_module(gm: fx.GraphModule, cost_model: str = "paper") -> FxGraph:
-    """Build the paper's G=(V,E) from a make_fx GraphModule."""
+def node_memory(val: Any, specs: Optional[Tuple] = None,
+                axis_sizes: Optional[Dict[str, int]] = None) -> Tuple[int, int]:
+    """(M_v, shard count) of a node's output values: whole bytes, or with
+    ``specs`` the per-device bytes and the largest number of devices any
+    output is split across."""
+    if specs is None:
+        return tensor_bytes(val) or 1, 1
+    from ..parallel import sharding as sh
+
+    mem, shards = 0, 1
+    for t, sp in zip(_tensors(val), specs):
+        mem += sh.sharded_aval_bytes(t, sp, axis_sizes)
+        shards = max(shards, sh.num_shards(tuple(t.shape), sp, axis_sizes))
+    return mem or 1, shards
+
+
+def from_graph_module(gm: fx.GraphModule, cost_model: str = "paper", mesh: Any = None,
+                      in_specs: Optional[List[Tuple]] = None) -> FxGraph:
+    """Build the paper's G=(V,E) from a make_fx GraphModule; with ``mesh``,
+    ``in_specs`` (one spec per placeholder, None: all replicated) makes
+    ``M_v`` per-device bytes."""
     if cost_model not in ("paper", "flops"):
         raise ValueError(f"unknown cost_model {cost_model!r}")
+    fx_specs, axis_sizes = None, {}
+    if mesh is not None:
+        from ..parallel import sharding as sh
+
+        axis_sizes = sh.axis_sizes_of(mesh)
+        n_in = sum(1 for n in gm.graph.nodes if n.op == "placeholder")
+        fx_specs = sh.propagate_node_specs(gm, in_specs or [()] * n_in, axis_sizes)
+    node_specs: Optional[List[Tuple]] = [] if fx_specs is not None else None
     owner: Dict[fx.Node, Optional[int]] = {}
     nodes: List[Node] = []
     producers: List[fx.Node] = []
@@ -144,11 +188,15 @@ def from_graph_module(gm: fx.GraphModule, cost_model: str = "paper") -> FxGraph:
             owner[n] = None
             continue
         idx = len(nodes)
-        mem = tensor_bytes(n.meta.get("val")) or 1
+        specs = fx_specs[n] if fx_specs is not None else None
+        mem, shards = node_memory(n.meta.get("val"), specs, axis_sizes)
+        if node_specs is not None:
+            node_specs.append(specs)
         if cost_model == "paper":
             t = 10.0 if name in ATEN_HEAVY else 1.0
         else:
-            t = node_flops(n)
+            # per-shard FLOPs: an output split k ways costs each device 1/k
+            t = max(node_flops(n) / shards, 1.0) if shards > 1 else node_flops(n)
         kind = ATEN_KINDS.get(name, name)
         nodes.append(Node(idx=idx, name=f"{idx}:{kind}", time=t, memory=float(mem),
                           kind=kind))
@@ -158,7 +206,8 @@ def from_graph_module(gm: fx.GraphModule, cost_model: str = "paper") -> FxGraph:
             src = owner.get(a)
             if src is not None:
                 edges.append((src, idx))
-    return FxGraph(graph=Graph(nodes, edges), nodes=producers, gm=gm, owner=owner)
+    return FxGraph(graph=Graph(nodes, edges), nodes=producers, gm=gm, owner=owner,
+                   node_specs=node_specs, axis_sizes=axis_sizes)
 
 
 #: True while ``trace_module`` traces.  Model code that places its own
@@ -186,7 +235,35 @@ def trace_module(fn: Callable[..., Any], *example_args: Any) -> fx.GraphModule:
         _TRACING.reset(token)
 
 
-def trace(fn: Callable[..., Any], *example_args: Any,
-          cost_model: str = "paper") -> FxGraph:
-    """Trace ``fn`` on example tensors (or pytrees of them)."""
-    return from_graph_module(trace_module(fn, *example_args), cost_model=cost_model)
+def global_fakes(args: Any) -> Any:
+    """DTensor leaves of ``args`` → fake tensors of their global shape on
+    their local device (the function is traced globally, as the reference
+    traces global avals); other leaves unchanged."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(t, DTensor) for t in pytree.tree_leaves(args)):
+        return args
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+
+    def fake(t):
+        if isinstance(t, DTensor):
+            with mode:
+                return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        return mode.from_tensor(t) if isinstance(t, torch.Tensor) else t
+
+    return pytree.tree_map(fake, args)
+
+
+def trace(fn: Callable[..., Any], *example_args: Any, cost_model: str = "paper",
+          mesh: Any = None, in_shardings: Optional[List[Any]] = None) -> FxGraph:
+    """Trace ``fn`` on example tensors (or pytrees of them).
+
+    With ``mesh`` (a ``DeviceMesh`` or an ``{axis: size}`` dict),
+    ``in_shardings`` is one spec per flat tensor leaf of ``example_args``
+    (None: all replicated) and node ``M_v`` becomes per-device bytes."""
+    gm = trace_module(fn, *global_fakes(example_args))
+    return from_graph_module(gm, cost_model=cost_model, mesh=mesh,
+                             in_specs=None if in_shardings is None
+                             else [tuple(s or ()) for s in in_shardings])

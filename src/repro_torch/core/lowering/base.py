@@ -6,12 +6,21 @@ value-and-grad twin of the carried computation on PyTorch autograd.
 Backends register under a short name (``"interpreter"``, ``"segment"``,
 ``"fx"``); ``resolve_backend(name, carrier)`` picks one, with ``"auto"``
 selecting each carrier's production path.
+
+Every backend runs on DTensors too (a carrier traced on a ``DeviceMesh``):
+:func:`on_mesh` runs the twin with plain tensors made inside it (an
+``arange``, a mask) taken as replicated, :func:`grads_like` returns each
+gradient in its input's placements (a replicated parameter's
+``Partial(sum)`` gradient is all-reduced there) and :func:`value_out` the
+loss replicated.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+import contextlib
+import functools
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -28,6 +37,107 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md module queue, item {item!r}"
     )
+
+
+#: The mesh axes a twin can run sharded over today; any other axis of a
+#: concrete mesh must have size 1.
+EXECUTABLE_AXES = ("pod", "data")
+
+
+def check_executable_mesh(mesh: Any) -> None:
+    """Raise for a mesh (a ``DeviceMesh`` or an ``{axis: size}`` dict) whose
+    model axes would shard execution: the data axes run, a model axis
+    larger than 1 is priced but not run."""
+    from ...parallel.sharding import axis_sizes_of
+
+    for name, size in axis_sizes_of(mesh).items():
+        if name not in EXECUTABLE_AXES and size > 1:
+            raise not_ported(f"model-axis execution (mesh axis {name!r} of size {size})",
+                             "Multi-device")
+
+
+def check_plan_on_mesh(carrier: Any, plan: ExecutionPlan) -> None:
+    """What a twin cannot run on DTensors yet raises here, naming ROADMAP.md
+    'Multi-device', instead of running unsharded: a model axis, a storage
+    strategy (``storage.Stored`` holds plain pinned copies and int8
+    blocks), and a recomputed random draw (the twin replays a saved
+    generator state, which DTensor's own RNG tracker does not follow)."""
+    from ...parallel.sharding import is_device_mesh
+
+    mesh = getattr(carrier, "mesh", None)
+    if not is_device_mesh(mesh):
+        return
+    check_executable_mesh(mesh)
+    if plan.strategy:
+        raise not_ported("storage strategies (offload, quantize) on a DeviceMesh",
+                         "Multi-device")
+    fxg = getattr(carrier, "fx", None)
+    if fxg is not None:
+        from ..fx_graph import op_name
+        from ..prims import ATEN_PRNG
+
+        redrawn = [fxg.nodes[v].name for seg in plan.segments for v in seg.recompute
+                   if op_name(fxg.nodes[v].target) in ATEN_PRNG]
+        if redrawn:
+            raise not_ported(f"recomputing random draws {redrawn} on a DeviceMesh",
+                             "Multi-device")
+
+
+def is_dtensor(t: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The tensor this process holds: a DTensor's local shard (a view, so
+    in-place updates show through), any other tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+@contextlib.contextmanager
+def on_mesh(leaves: Sequence[Any]) -> Iterator[None]:
+    """Run with DTensor's implicit replication when any leaf is a DTensor:
+    a plain tensor the traced function makes itself (``arange``, a mask)
+    then meets DTensors as a replicated value, as a constant does under
+    GSPMD."""
+    if any(is_dtensor(t) for t in leaves):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            yield
+    else:
+        yield
+
+
+def mesh_aware(run: Callable[..., Any]) -> Callable[..., Any]:
+    """``run`` under :func:`on_mesh` of its arguments' tensor leaves."""
+
+    @functools.wraps(run)
+    def wrapped(*args):
+        with on_mesh(pytree.tree_leaves(args)):
+            return run(*args)
+
+    return wrapped
+
+
+def value_out(loss: torch.Tensor) -> torch.Tensor:
+    """The twin's returned value: detached and, on a mesh, replicated (a
+    mean over a sharded batch is ``Partial(avg)`` until then)."""
+    loss = loss.detach()
+    if is_dtensor(loss) and not all(p.is_replicate() for p in loss.placements):
+        from torch.distributed.tensor import Replicate
+
+        loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
+    return loss
+
+
+def in_layout(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A gradient in its input's DTensor placements (``Partial`` → the
+    input's ``Replicate``/``Shard``: the all-reduce or reduce-scatter)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(like.placements):
+        return g.redistribute(like.device_mesh, like.placements)
+    return g
 
 
 def reject_track_live(backend_name: str) -> None:
@@ -62,7 +172,7 @@ def grads_like(loss: torch.Tensor, leaves: Sequence[torch.Tensor]) -> List[torch
     out = []
     for t in leaves:
         g = next(got) if t.requires_grad else None
-        out.append(torch.zeros_like(t) if g is None else g)
+        out.append(torch.zeros_like(t) if g is None else in_layout(g, t))
     return out
 
 
@@ -76,9 +186,9 @@ def blockgraph_value_and_grad(fwd: Callable[..., Any],
         out = fwd(pytree.tree_unflatten(leaves, spec), inputs)
         loss = loss_fn(*out) if isinstance(out, tuple) else loss_fn(out)
         grads = grads_like(loss, leaves)
-        return loss.detach(), pytree.tree_unflatten(grads, spec)
+        return value_out(loss), pytree.tree_unflatten(grads, spec)
 
-    return f
+    return mesh_aware(f)
 
 
 class Lowering(abc.ABC):

@@ -15,8 +15,18 @@ Both expose ``to_graph()`` (planner input) and ``default_backend``.
 ``TracedCarrier.trace(..., analyze_effects=True)`` runs the effect pass
 (``repro_torch.analysis.effects``) and pins its ``must_store`` frontier
 into the graph, which then hashes to its own plan-cache digest.
-Sharded carriers (``mesh=``/``in_shardings=``) wait for ROADMAP.md module
-queue, item 'Multi-device'.
+
+**Sharded carriers** (``mesh=``/``in_shardings=``), as in the reference:
+node ``M_v`` is per-device bytes, so the budget the planner enforces is
+per-device.  ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` or a plain
+``{axis: size}`` dict; a dict informs the *accounting* only.  On a
+``DeviceMesh`` the lowered twin runs on DTensors: :meth:`TracedCarrier.constrain`
+(the reference's ``with_sharding_constraint``) distributes plain
+arguments, and redistributes DTensor ones, onto the caller's placements;
+the loss comes back replicated and each gradient in its input's
+placements (``lowering.base.grads_like``).  Execution covers the mesh's
+data axes only: a model axis larger than 1 raises (ROADMAP.md
+'Multi-device').
 """
 
 from __future__ import annotations
@@ -27,14 +37,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.utils._pytree as pytree
 
-from ..fx_graph import FxGraph, from_graph_module, trace_module
+from ...parallel import sharding as sh
+from ..fx_graph import FxGraph, from_graph_module, global_fakes, trace_module
 from ..graph import Graph
-from .base import not_ported
-
-
-def reject_mesh(mesh: Any, in_shardings: Any) -> None:
-    if mesh is not None or in_shardings is not None:
-        raise not_ported("mesh= / in_shardings= (sharded planning)", "Multi-device")
+from .base import check_executable_mesh
 
 
 @dataclasses.dataclass
@@ -43,7 +49,11 @@ class BlockGraphCarrier:
 
     The lowered callables take ``(params, inputs)`` and return
     ``(loss, param_grads)``.  ``params``/``inputs`` here only give shapes
-    (``plan_function`` stores them on the meta device).
+    (``plan_function`` stores them on the meta device).  With ``mesh`` (a
+    ``DeviceMesh`` or an ``{axis: size}`` dict) blocks carrying an
+    ``out_sharding`` annotation are budgeted at per-device bytes, and on a
+    ``DeviceMesh`` the ``"segment"`` lowering pins those outputs onto their
+    spec (``blockgraph.block_spec``).
     """
 
     bg: Any  # core.blockgraph.BlockGraph
@@ -51,11 +61,61 @@ class BlockGraphCarrier:
     params: Any
     inputs: Dict[str, Any]
     cost_model: str = "paper"
+    mesh: Any = None
 
     default_backend = "segment"
 
     def to_graph(self) -> Graph:
-        return self.bg.to_graph(self.params, self.inputs, cost_model=self.cost_model)
+        return self.bg.to_graph(self.params, self.inputs, cost_model=self.cost_model,
+                                mesh=self.mesh)
+
+
+def _is_spec(x: Any) -> bool:
+    """One spec (or None, or DTensor placements) rather than a pytree of
+    them: every entry is None, an axis name or a non-empty tuple of names."""
+    if x is None or sh.is_placements(x):
+        return True
+    return isinstance(x, (tuple, list)) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and e and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def _leaf_spec(s: Any, leaf: Any, mesh: Any) -> sh.Spec:
+    from torch.distributed.tensor import DTensor
+
+    if s is None:
+        return sh.normalize_spec(leaf) if isinstance(leaf, DTensor) else ()
+    return sh.normalize_spec(s, mesh=mesh, ndim=getattr(leaf, "ndim", 0))
+
+
+def _flat_arg_specs(args: Sequence[Any], in_shardings: Any, mesh: Any) -> Tuple:
+    """Flatten a per-positional-arg sharding description to per-leaf specs.
+
+    ``in_shardings`` is None (each DTensor leaf keeps its own placements,
+    every other leaf is replicated) or a sequence aligned with the
+    positional args; each entry is None, a single spec (a tuple of
+    entries, or DTensor placements) applied to every leaf of that
+    argument, or a pytree of specs matching the argument's structure.
+    """
+    if in_shardings is None:
+        in_shardings = [None] * len(args)
+    if len(in_shardings) != len(args):
+        raise ValueError(
+            f"in_shardings has {len(in_shardings)} entries for {len(args)} "
+            "positional arguments")
+    out: List[Any] = []
+    for a, s in zip(args, in_shardings):
+        leaves, spec = pytree.tree_flatten(a)
+        if _is_spec(s):
+            out.extend(_leaf_spec(s, t, mesh) for t in leaves)
+            continue
+        s_leaves, s_spec = pytree.tree_flatten(s, is_leaf=_is_spec)
+        if s_spec != spec:
+            raise ValueError("in_shardings entry does not match the argument's "
+                             f"pytree structure ({s_spec} != {spec})")
+        out.extend(_leaf_spec(x, t, mesh) for x, t in zip(s_leaves, leaves))
+    return tuple(out)
 
 
 @dataclasses.dataclass
@@ -65,6 +125,11 @@ class TracedCarrier:
     ``fn`` must return a scalar tensor; the lowered callables take the same
     positional arguments (same pytree structure, shapes, dtypes, devices)
     and return ``(value, grads)`` w.r.t. ``argnums``.
+
+    With ``mesh`` + ``in_shardings`` the trace is **sharding-aware**: node
+    ``M_v`` is per-device bytes (specs propagated through the aten graph,
+    conservative replicated fallback) and, on a ``DeviceMesh``, the twin
+    runs on DTensors in the caller's placements.
     """
 
     fn: Callable[..., torch.Tensor]
@@ -76,6 +141,8 @@ class TracedCarrier:
     #: the effect analysis (``analysis.effects.EffectAnalysis``) when traced
     #: with ``analyze_effects=True``, else None
     effects: Optional[Any] = None
+    mesh: Any = None  # DeviceMesh | {axis: size} dict | None
+    in_specs: Optional[Tuple] = None  # flat per-leaf specs under ``mesh``
 
     default_backend = "fx"
 
@@ -90,7 +157,8 @@ class TracedCarrier:
         in_shardings: Any = None,
         analyze_effects: bool = False,
     ) -> "TracedCarrier":
-        reject_mesh(mesh, in_shardings)
+        if in_shardings is not None and mesh is None:
+            raise ValueError("in_shardings= needs mesh=")
         flat, in_spec = pytree.tree_flatten(tuple(args))
         bad = [type(x).__name__ for x in flat if not isinstance(x, torch.Tensor)]
         if bad:
@@ -104,7 +172,10 @@ class TracedCarrier:
         def flat_fn(*flat_args):
             return fn(*pytree.tree_unflatten(list(flat_args), in_spec))
 
-        fxg = from_graph_module(trace_module(flat_fn, *flat), cost_model=cost_model)
+        in_specs = None if mesh is None else _flat_arg_specs(args, in_shardings, mesh)
+        fxg = from_graph_module(trace_module(flat_fn, *global_fakes(flat)),
+                                cost_model=cost_model, mesh=mesh,
+                                in_specs=None if in_specs is None else list(in_specs))
         val = fxg.output.meta.get("val")
         if not isinstance(val, torch.Tensor) or val.shape != ():
             raise TypeError(
@@ -124,7 +195,8 @@ class TracedCarrier:
             if effects.pins:
                 fxg = dataclasses.replace(fxg, graph=pin_graph(fxg.graph, effects.pins))
         return cls(fn=fn, argnums=argnums, cost_model=cost_model, in_spec=in_spec,
-                   arg_slices=tuple(slices), fx=fxg, effects=effects)
+                   arg_slices=tuple(slices), fx=fxg, effects=effects, mesh=mesh,
+                   in_specs=in_specs)
 
     def to_graph(self) -> Graph:
         return self.fx.graph
@@ -147,7 +219,18 @@ class TracedCarrier:
             )
         diff = {j for a in self.argnum_tuple for j in range(*self.arg_slices[a])}
         return [t.detach().requires_grad_(j in diff and t.is_floating_point())
-                for j, t in enumerate(flat)]
+                for j, t in enumerate(self.constrain(flat))]
+
+    def constrain(self, flat: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Pin flat args to the caller's shardings: on a ``DeviceMesh`` a
+        plain tensor is distributed (each rank keeps its own slice of its
+        copy: nothing is sent) and a DTensor redistributed onto the leaf's
+        placements.  Identity without a ``DeviceMesh`` — a plain axis-size
+        dict carries no devices, so it informs the accounting only."""
+        if not sh.is_device_mesh(self.mesh):
+            return list(flat)
+        check_executable_mesh(self.mesh)
+        return [sh.place(t, self.mesh, sp) for t, sp in zip(flat, self.in_specs)]
 
     def grads_out(self, args: Sequence[Any], flat_grads: Sequence[torch.Tensor]) -> Any:
         """Flat input grads → the grads of ``argnums`` in the args' structure."""
@@ -163,10 +246,13 @@ def abstract_signature(args: Sequence[Any]) -> Tuple:
     """Hashable (pytree spec, (shape, dtype, device) per leaf) key of a
     call's arguments — the memo key under which ``plan_function`` caches one
     traced and planned lowering."""
+    from torch.distributed.tensor import DTensor
+
     flat, spec = pytree.tree_flatten(tuple(args))
     leaves = tuple(
-        (tuple(x.shape), str(x.dtype), str(x.device)) if isinstance(x, torch.Tensor)
-        else (type(x).__name__, x)
+        (tuple(x.shape), str(x.dtype), str(x.device),
+         (repr(x.device_mesh), repr(x.placements)) if isinstance(x, DTensor) else None)
+        if isinstance(x, torch.Tensor) else (type(x).__name__, x)
         for x in flat
     )
     return (repr(spec), leaves)

@@ -11,9 +11,12 @@ pipeline:
     budget sweep) → a registered Lowering backend → runnable value_and_grad
 
 Tracing and planning happen lazily on the first call and are memoized per
-argument structure, shapes, dtypes and devices; re-creating the planned
-function re-plans through the content-addressed plan cache instead of
-re-running the DP.  The twin runs on the device of its arguments.
+argument structure, shapes, dtypes, devices and DTensor placements (a
+planned function holds one mesh and one set of input shardings, so its
+memo is keyed by them too); re-creating the planned function re-plans
+through the content-addressed plan cache instead of re-running the DP.
+The twin runs on the device of its arguments; with a ``DeviceMesh`` on
+DTensors over it.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch.utils._pytree as pytree
 
 from ..schedule import ExecutionPlan
 from .base import InfeasibleBudgetError, resolve_backend
-from .carriers import BlockGraphCarrier, TracedCarrier, abstract_signature, reject_mesh
+from .carriers import BlockGraphCarrier, TracedCarrier, abstract_signature
 
 
 @dataclasses.dataclass
@@ -64,6 +67,8 @@ class PlannedFunction:
         loss_fn: Optional[Callable[..., Any]],
         planner: Optional[Any],
         track_live: bool,
+        mesh: Any = None,
+        in_shardings: Any = None,
         analyze_effects: bool = False,
         verify: bool = False,
         verify_hlo: bool = False,
@@ -80,6 +85,8 @@ class PlannedFunction:
         self.loss_fn = loss_fn
         self.planner = planner
         self.track_live = track_live
+        self.mesh = mesh
+        self.in_shardings = in_shardings
         self.analyze_effects = analyze_effects
         self.verify = verify
         self.verify_hlo = verify_hlo
@@ -105,11 +112,14 @@ class PlannedFunction:
             # only shapes matter for planning — don't pin the first call's
             # concrete weights in the memo for the function's lifetime
             meta = pytree.tree_map(
-                lambda t: t.to("meta") if isinstance(t, torch.Tensor) else t, args)
+                lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                if isinstance(t, torch.Tensor) else t, args)
             return BlockGraphCarrier(bg=fn, loss_fn=self.loss_fn, params=meta[0],
-                                     inputs=meta[1], cost_model=self._trace_cost_model)
+                                     inputs=meta[1], cost_model=self._trace_cost_model,
+                                     mesh=self.mesh)
         return TracedCarrier.trace(fn, args, argnums=self.argnums,
-                                   cost_model=self._trace_cost_model,
+                                   cost_model=self._trace_cost_model, mesh=self.mesh,
+                                   in_shardings=self.in_shardings,
                                    analyze_effects=self.analyze_effects)
 
     def lowered_for(self, *args) -> LoweredPlan:
@@ -297,16 +307,33 @@ def plan_function(
     graph, and the DP re-runs on it (its digest carries the ``compiled:``
     cost source, so such plans never alias flops-priced cache entries).
 
-    ``mesh``/``in_shardings`` (ROADMAP.md item 'Multi-device') raise
-    ``NotImplementedError``.
+    mesh / in_shardings:
+        Sharding-aware planning: ``mesh`` is a ``torch.distributed``
+        ``DeviceMesh`` (or a plain ``{axis: size}`` dict when only the
+        accounting is needed); ``in_shardings`` aligns with the positional
+        args — each entry is None (a DTensor keeps its placements, anything
+        else is replicated), one spec (a tuple of mesh-axis entries such as
+        ``("data", None)``, or DTensor placements) for every leaf of that
+        arg, or a matching pytree of specs.  Specs are propagated through
+        the trace (conservative replicated fallback), node ``M_v`` becomes
+        per-device bytes (distinct shardings therefore hash to distinct
+        plan-cache digests) and the budget is **per-device**.  On a
+        ``DeviceMesh`` the twin runs on DTensors in the caller's
+        placements: the loss comes back replicated and every gradient in
+        its input's placements (a replicated parameter's gradient is
+        all-reduced).  The mesh's data axes run; a model axis larger than 1,
+        a strategy plan and a recomputed random draw raise
+        ``NotImplementedError`` (ROADMAP.md 'Multi-device').  BlockGraphs
+        take ``mesh`` only (their blocks' ``out_sharding``).
     """
-    reject_mesh(mesh, in_shardings)
+    if in_shardings is not None and mesh is None:
+        raise ValueError("in_shardings= needs mesh=")
     if track_live and backend == "auto":
         backend = "interpreter"
     return PlannedFunction(
         fn=fn, budget=budget, backend=backend, method=method,
         objective=objective, cost_model=cost_model, argnums=argnums,
-        loss_fn=loss_fn, planner=planner, track_live=track_live,
-        analyze_effects=analyze_effects, verify=verify, verify_hlo=verify_hlo,
+        loss_fn=loss_fn, planner=planner, track_live=track_live, mesh=mesh,
+        in_shardings=in_shardings, analyze_effects=analyze_effects, verify=verify, verify_hlo=verify_hlo,
         donate=donate, strategies=strategies,
     )

@@ -45,6 +45,12 @@ whatever autograd does not hold is freed during the forward.  Values and
 grads are unchanged.  The twin carries ``donate_argnums`` and
 ``donation_hints`` (``lowering.donation``) as the reference's does.
 
+**On a DeviceMesh** the twin runs node by node on DTensors (the aten
+graph is global, so every op takes its global shapes), under the same
+regions; the loss comes back replicated and each gradient in its input's
+placements (``base.grads_like``).  Strategy plans and recomputed random
+draws raise there (``base.check_plan_on_mesh``).
+
 The twin exposes what the analysis layer reads (``repro_torch.analysis``):
 ``run.node_now()`` is the fx node being evaluated (None between nodes, so
 ops that autograd's derivative formulas run are attributed to no node), and
@@ -67,7 +73,15 @@ from ...optim.compression import roundtrip_with_payload
 from ..fx_graph import is_view
 from ..schedule import ExecutionPlan
 from . import storage
-from .base import Lowering, grads_like, register_lowering, reject_track_live
+from .base import (
+    Lowering,
+    check_plan_on_mesh,
+    grads_like,
+    on_mesh,
+    register_lowering,
+    reject_track_live,
+    value_out,
+)
 from .carriers import TracedCarrier
 from .interpreter import SegmentProgram, run_segment, traced_programs
 
@@ -124,6 +138,7 @@ class _Replay(TorchDispatchMode):
 
 def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan, donate: bool = False):
     """``f(*args) -> (value, grads)`` of the traced function under the plan."""
+    check_plan_on_mesh(carrier, plan)
     fxg = carrier.fx
     owner, out_node = fxg.owner, fxg.output
     progs = traced_programs(fxg, plan)
@@ -245,8 +260,9 @@ def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan, donate: bool 
 
     def run(*args):
         flat = carrier.flatten_args(args)
-        loss = forward(flat)
-        return loss.detach(), carrier.grads_out(args, grads_like(loss, flat))
+        with on_mesh(flat):
+            loss = forward(flat)
+            return value_out(loss), carrier.grads_out(args, grads_like(loss, flat))
 
     run.node_now = lambda: current[0]
     run.policy_saves = lambda node: (decide(node, region_keep[node]) is not None

@@ -48,9 +48,15 @@ from . import storage
 from .base import (
     Lowering,
     blockgraph_value_and_grad,
+    check_plan_on_mesh,
     grads_like,
+    in_layout,
+    local_tensor,
+    mesh_aware,
+    on_mesh,
     register_lowering,
     reject_donate,
+    value_out,
 )
 from .carriers import BlockGraphCarrier, TracedCarrier
 
@@ -219,7 +225,7 @@ def interpret(
     recomputes a cached key of its own segment instead of loading it.
     """
     live: List[Tuple[str, int]] = []
-    input_storages = {t.untyped_storage().data_ptr()
+    input_storages = {local_tensor(t).untyped_storage().data_ptr()
                       for v in inputs.values() for t in _tensor_leaves(v)}
 
     def snapshot(tag: str, *stores: Dict[Any, Any]) -> None:
@@ -233,7 +239,7 @@ def interpret(
                     if isinstance(t, storage.Stored):
                         nbytes += t.device_bytes()
                     elif isinstance(t, torch.Tensor):
-                        s = t.untyped_storage()
+                        s = local_tensor(t).untyped_storage()
                         if s.data_ptr() not in seen:
                             seen.add(s.data_ptr())
                             nbytes += s.nbytes()
@@ -352,10 +358,12 @@ def planned_value_and_grad(bg, plan: ExecutionPlan,
             leaves, spec = pytree.tree_flatten(params[b.name])
             got = grads.get(("param", b.name), [None] * len(leaves))
             param_grads[b.name] = pytree.tree_unflatten(
-                [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, got)], spec)
+                [torch.zeros_like(t) if g is None else in_layout(g, t)
+                 for t, g in zip(leaves, got)], spec)
+        loss = value_out(loss)
         return (loss, param_grads, live) if track_live else (loss, param_grads)
 
-    return run
+    return mesh_aware(run)
 
 
 def vanilla_value_and_grad(bg, loss_fn: Callable[..., torch.Tensor]):
@@ -367,7 +375,9 @@ def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
                                   track_live: bool = False):
     """Interpret the canonical strategy over a traced function's fx graph;
     ``f(*args) -> (value, grads[, live_trace])`` with grads w.r.t.
-    ``carrier.argnums``."""
+    ``carrier.argnums``.  On a DeviceMesh the live-byte audit counts each
+    DTensor's local shard: per-device bytes, as the plan prices them."""
+    check_plan_on_mesh(carrier, plan)
     fxg = carrier.fx
     progs = traced_programs(fxg, plan)
     keep = {n for n, v in fxg.owner.items() if v is not None and v in plan.cached}
@@ -395,6 +405,10 @@ def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
 
     def run(*args):
         flat = carrier.flatten_args(args)
+        with on_mesh(flat):
+            return interpret_flat(args, flat)
+
+    def interpret_flat(args, flat):
         inputs = dict(zip(placeholders, flat))
         diff = {n for n, t in inputs.items() if t.requires_grad}
         tracked = set(diff)
@@ -408,9 +422,9 @@ def traced_planned_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan,
             draws=lambda n: op_name(n.target) in ATEN_PRNG, store=store, load=load,
             rerun=lambda n: code_of(n) == storage.QUANTIZE)
         flat_grads = [grads.get(n, [None])[0] for n in inputs]
-        flat_grads = [torch.zeros_like(t) if g is None else g
+        flat_grads = [torch.zeros_like(t) if g is None else in_layout(g, t)
                       for t, g in zip(flat, flat_grads)]
-        out = (loss, carrier.grads_out(args, flat_grads))
+        out = (value_out(loss), carrier.grads_out(args, flat_grads))
         return out + (live,) if track_live else out
 
     return run
@@ -433,15 +447,16 @@ def vanilla_traced_value_and_grad(carrier: TracedCarrier,
 
     def run(*args):
         flat = carrier.flatten_args(args)
-        if plan is None:
-            loss = carrier.fn(*pytree.tree_unflatten(flat, carrier.in_spec))
-        else:
-            env = dict(zip(placeholders, flat))
-            for prog in progs:
-                local = run_segment(prog, fxg.run_node, env.__getitem__)
-                env.update((k, local[k]) for k in prog.outs)
-            loss = env[fxg.output]
-        return loss.detach(), carrier.grads_out(args, grads_like(loss, flat))
+        with on_mesh(flat):
+            if plan is None:
+                loss = carrier.fn(*pytree.tree_unflatten(flat, carrier.in_spec))
+            else:
+                env = dict(zip(placeholders, flat))
+                for prog in progs:
+                    local = run_segment(prog, fxg.run_node, env.__getitem__)
+                    env.update((k, local[k]) for k in prog.outs)
+                loss = env[fxg.output]
+            return value_out(loss), carrier.grads_out(args, grads_like(loss, flat))
 
     return run
 
@@ -463,6 +478,7 @@ class InterpreterLowering(Lowering):
               donate: bool = False):
         if donate:
             reject_donate(self.name)
+        check_plan_on_mesh(carrier, plan)
         if isinstance(carrier, BlockGraphCarrier):
             if plan.strategy:
                 raise NotImplementedError(

@@ -21,6 +21,11 @@ outputs pass through ``optim.compression.straight_through_roundtrip``, so
 every later consumer sees the replay-from-storage value.  ``donate=True``
 drops this function's references to a value once its last reading segment
 has run.
+
+On a ``DeviceMesh`` (a carrier with ``mesh=``, DTensor params and inputs)
+every block output with an ``out_sharding`` is pinned onto it
+(``blockgraph.block_spec``, ``parallel.sharding.place``); loss and grads come back as ``base``
+says (replicated, and in the inputs' placements).
 """
 
 from __future__ import annotations
@@ -34,9 +39,13 @@ from torch.utils.checkpoint import checkpoint
 from ...optim.compression import straight_through_roundtrip
 from ..schedule import ExecutionPlan
 from . import storage
+from ...parallel.sharding import axis_sizes_of, place
+from ..blockgraph import block_spec
 from .base import (
     Lowering,
     blockgraph_value_and_grad,
+    check_plan_on_mesh,
+    is_dtensor,
     register_lowering,
     reject_track_live,
 )
@@ -70,8 +79,11 @@ def apply_segmented(bg, params: Dict[str, Any], inputs: Dict[str, Any],
             local = {k: storage.load(v) for k, v in zip(_prog.ext, ext_vals)}
             for name in _prog.steps:
                 b = bg.by_name[name]
-                local[name] = b.apply(local[("param", name)],
-                                      *[local[i] for i in b.inputs])
+                out = b.apply(local[("param", name)], *[local[i] for i in b.inputs])
+                if b.out_sharding is not None and is_dtensor(out):
+                    mesh = out.device_mesh
+                    out = place(out, mesh, block_spec(b, tuple(out.shape), axis_sizes_of(mesh)))
+                local[name] = out
             return tuple(local[o] for o in _prog.outs)
 
         outs = checkpoint(seg_fn, *[values[k] for k in prog.ext], use_reentrant=False)
@@ -99,6 +111,7 @@ class SegmentLowering(Lowering):
               donate: bool = False):
         if track_live:
             reject_track_live(self.name)
+        check_plan_on_mesh(carrier, plan)
         run = blockgraph_value_and_grad(
             lambda p, x: apply_segmented(carrier.bg, p, x, plan, donate=donate),
             carrier.loss_fn)

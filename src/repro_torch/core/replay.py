@@ -32,8 +32,9 @@ Event model (one backward step, segments processed last → first):
 
 Communication is priced from the mesh: one ring all-reduce's traffic factor
 ``2·(n-1)/n`` over the plan's cached residuals (gradient collectives), or —
-when optimized HLO text is available — the exact per-chip collective bytes
-from ``analysis.hlo_text.collective_bytes``.  Bytes are attributed to
+when a step was measured — the per-device collective bytes the analysis
+layer's collective counter saw (:func:`hlo_comm_bytes`; the reference reads
+them from optimized HLO text).  Bytes are attributed to
 segments proportional to their kept-residual mass and divided by the
 interconnect bandwidth.
 """
@@ -41,7 +42,7 @@ interconnect bandwidth.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 from .cost_model import OpProfile, node_seconds
 from .graph import Graph, NodeSet, mask_iter, to_mask
@@ -129,14 +130,19 @@ def mesh_comm_bytes(plan: ExecutionPlan, g: Graph, mesh: object) -> float:
     return 2.0 * (n - 1) / n * _bytes_of(g, plan.cached)
 
 
-def hlo_comm_bytes(hlo_text: str) -> float:
-    """Exact per-chip collective bytes from optimized HLO text.
+def hlo_comm_bytes(counted: Any) -> float:
+    """Measured per-device collective bytes of one step.
 
-    The reference parses XLA's HLO; the port has no HLO to parse.
+    The reference sums the collectives' result shapes in XLA's optimized
+    (partitioned, so per-chip) HLO text.  Eager torch has no HLO; the
+    substitute is the collective counter of the analysis layer
+    (``repro_torch.analysis.census.CountCollectives``), run around one step:
+    ``counted`` is that counter (or its ``stats`` dict), and the result is
+    the payload bytes this rank handed to every ``_c10d_functional``
+    collective.  Pass it to :func:`replay` as ``comm_bytes``.
     """
-    raise NotImplementedError(
-        "hlo_comm_bytes is not ported: ROADMAP.md module queue, item 'Multi-device'"
-    )
+    stats = getattr(counted, "stats", counted)
+    return float(sum(rec["payload_bytes"] for rec in stats.values()))
 
 
 def window_peaks(g: Graph, plan: ExecutionPlan) -> List[float]:
@@ -195,8 +201,8 @@ def replay(
     *forward* seconds with compiled or profiled measurements
     (``analysis.hlo.extract_segment_costs``), keyed by segment index;
     recompute within an overridden segment is scaled by its ``T``-ratio.
-    ``comm_bytes`` (e.g. from :func:`hlo_comm_bytes`) overrides the
-    :func:`mesh_comm_bytes` model.
+    ``comm_bytes`` (the collective counter's bytes, :func:`hlo_comm_bytes`)
+    overrides the :func:`mesh_comm_bytes` model.
 
     Strategy plans (``plan.strategy`` non-empty) additionally price each
     window's kept residuals: offloaded nodes pay a D2H+H2D round trip over

@@ -170,7 +170,13 @@ def _library() -> ctypes.CDLL:
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   *same_as_q: torch.Tensor) -> Tuple[int, int, int, int, int, int]:
-    """Shapes, dtypes and layout the kernels take; returns B, H, KV, Sq, Sk, D."""
+    """Shapes, dtypes and layout the kernels take; returns B, H, KV, Sq, Sk, D.
+    A DTensor raises: the custom ops' sharding rules (``kernels/ops.py``)
+    hand the wrappers local shards only."""
+    for t in (q, k, v, *same_as_q):
+        if type(t).__name__ == "DTensor":
+            raise TypeError("the flash-attention wrappers take local tensors; a DTensor "
+                            "goes through the custom op repro_torch::flash_attention")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B,H,Sq,D), k/v (B,KV,Sk,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

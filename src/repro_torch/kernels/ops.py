@@ -14,12 +14,20 @@ Being one registered operator (``repro_torch::flash_attention``, with a
 fake implementation for shapes), attention is a single opaque node when
 ``core.fx_graph`` traces a model with ``make_fx``: the planner can cache
 or recompute it as a whole, and recomputing it launches the forward kernel
-again.
+again.  Its backward is a registered operator too
+(``repro_torch::flash_attention_bwd``).
+
+**On DTensors** both operators carry a DTensor sharding rule
+(``register_sharding``): batch and heads are shardable, Sq, Sk and D are
+replicated, lse follows q's (B, H).  DTensor then runs each operator on
+its local shards, so only plain local tensors ever reach the kernels'
+wrappers (which raise on a DTensor).  The rules are registered when this
+module is imported (a registry entry: no process group is touched).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,17 +61,61 @@ def _setup_context(ctx, inputs, output):
     ctx.set_materialize_grads(False)
 
 
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                           dlse: Optional[torch.Tensor], causal: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in model layout: the recompute backward
+    (``flash_attention.flash_attention_bwd``), each a (B, S, H, D) view of
+    the kernels' (B, H, S, D) result."""
+    dq, dk, dv = fa.flash_attention_bwd(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(out), lse,
+                                        _bhsd(do), causal=causal, dlse=dlse)
+    return _bhsd(dq), _bhsd(dk), _bhsd(dv)
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, out, lse, do, dlse, causal):
+    return tuple(_bhsd(_bhsd(t).new_empty(_bhsd(t).shape)) for t in (q, k, v))
+
+
 def _backward(ctx, do, dlse):
     q, k, v, out, lse = ctx.saved_tensors
     if do is None and dlse is None:
         return None, None, None, None
     do = torch.zeros_like(out) if do is None else do.contiguous()
-    dq, dk, dv = fa.flash_attention_bwd(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(out), lse,
-                                        _bhsd(do), causal=ctx.causal, dlse=dlse)
-    return _bhsd(dq), _bhsd(dk), _bhsd(dv), None
+    dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, do, dlse, ctx.causal)
+    return dq, dk, dv, None
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _register_dtensor_rules() -> None:
+    """Both operators' DTensor sharding rules.  Per mesh dim: all
+    replicated; batch sharded (dim 0 of every tensor); or heads sharded
+    (dim 2 of the (B, S, H, D) tensors, dim 1 of lse and dlse: q's heads
+    and k's KV heads split alike, so each shard keeps whole GQA groups
+    when the mesh dim divides KV)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    # (placement of the (B, S, H, D) tensors, placement of lse and dlse)
+    options = ((Replicate(), Replicate()), (Shard(0), Shard(0)), (Shard(2), Shard(1)))
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _fwd_rule(q, k, v, causal):
+        return [([big, stats], [big, big, big, None]) for big, stats in options]
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+    def _bwd_rule(q, k, v, out, lse, do, dlse, causal):
+        return [([big, big, big],
+                 [big, big, big, big, stats, big, None if dlse is None else stats, None])
+                for big, stats in options]
+
+
+if torch.distributed.is_available():
+    _register_dtensor_rules()
 
 
 def flash_attention(

@@ -1,15 +1,24 @@
-"""Hardware constants of the port's target card (NVIDIA H100 SXM).
+"""Hardware constants of the port's target card (NVIDIA H100 SXM), and the
+host mesh (port of ``repro/launch/mesh.py``).
 
-The reference's ``repro/launch/mesh.py`` holds TPU v5e constants and builds
-jax meshes.  One card needs no mesh; what the planners need from this
-module is the card's memory, which is read from the device itself
+The reference's module holds TPU v5e constants and builds jax meshes.  The
+planners need the card's memory, which is read from the device itself
 (``torch.cuda.get_device_properties(dev).total_memory``) and threaded
 through ``launch.plan`` as ``hbm_bytes``.  ``REFERENCE_HBM_BYTES`` is the
 reference's 16 GiB v5e figure, kept so tests can pin the reference's budget.
+
+The mesh is a ``torch.distributed`` ``DeviceMesh`` over the process
+group's world: :func:`init_distributed` starts the group from
+``torchrun``'s environment (NCCL on CUDA with a card per rank, gloo on the
+CPU or for ranks sharing a node's cards; :func:`pick_backend`), and
+:func:`make_host_mesh` lays its ranks out as ``("data", "model")``.  The
+production TPU meshes (``make_production_mesh``) have no counterpart: a
+pod's 256 chips are not this port's target.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -37,3 +46,71 @@ def planning_hbm_bytes(device: torch.device) -> float:
     CUDA, the reference's per-device figure on the CPU (so CPU plans equal
     the reference's)."""
     return device_hbm_bytes(device) if device.type == "cuda" else REFERENCE_HBM_BYTES
+
+
+def pick_backend(device_type: str, world: int, local_world: Optional[int], cards: int) -> str:
+    """The process group's backend: gloo on the CPU; on CUDA, NCCL when
+    this node's ranks (``local_world``, torchrun's ``LOCAL_WORLD_SIZE``)
+    have a card each, gloo when they share this node's cards in a
+    single-node group (gloo carries CUDA tensors through host memory).  Any
+    other layout raises rather than reduce every gradient on the host: ranks
+    sharing cards in a multi-node group, or more ranks than cards with no
+    ``LOCAL_WORLD_SIZE`` to tell a node's ranks from the world."""
+    if device_type != "cuda":
+        return "gloo"
+    if local_world is None:
+        if world <= cards:
+            return "nccl"
+        raise ValueError(f"{world} ranks and {cards} cards here, and no LOCAL_WORLD_SIZE "
+                         "to say how many ranks share this node (torchrun sets it)")
+    if local_world <= cards:
+        return "nccl"
+    if world == local_world:
+        return "gloo"
+    raise ValueError(f"{local_world} ranks share this node's {cards} cards in a group of "
+                     f"{world} ranks across nodes: run one rank per card (NCCL)")
+
+
+def init_distributed(device: torch.device) -> int:
+    """Join the process group ``torchrun`` describes (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` in the
+    environment), on :func:`pick_backend`'s backend, which rank 0 prints.
+    On CUDA this process takes the card ``LOCAL_RANK`` modulo the cards
+    there are.  Returns the rank; a group already started is kept."""
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = pick_backend(device.type, world, None if local is None else int(local), cards)
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % cards)
+    if not dist.is_initialized():
+        dist.init_process_group(backend)
+        if dist.get_rank() == 0:
+            print(f"process group: {backend}, {world} ranks, {local or world} on this node"
+                  + (f" sharing {cards} cards" if backend == "gloo" and cards else ""),
+                  flush=True)
+    return dist.get_rank()
+
+
+def make_host_mesh(device: torch.device, model: int = 1):
+    """The process group's world as a ``(world/model, model)`` mesh with
+    axes ``("data", "model")`` (the reference's host mesh)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = dist.get_world_size()
+    if n % model:
+        raise ValueError(f"world size {n} is not divisible by model={model}")
+    return init_device_mesh(device.type, (n // model, model), mesh_dim_names=("data", "model"))
+
+
+def mesh_num_devices(mesh) -> int:
+    """Devices of a ``DeviceMesh`` (or of an ``{axis: size}`` dict)."""
+    from repro_torch.parallel.sharding import axis_sizes_of
+
+    n = 1
+    for size in axis_sizes_of(mesh).values():
+        n *= size
+    return n

@@ -2,10 +2,12 @@
 
 The reference's step builders (``build_train_step`` and friends) return
 jitted, sharded step functions; in the port the training step is the
-``Trainer``'s eager loop, so only ``segment_plan`` comes across.  The
-reference reads the data/model axis sizes off a jax ``Mesh``; one card has
-no mesh, so the port takes them as an ``{axis: size}`` dict, by default
-``{"data": 1, "model": 1}`` (one card).
+``Trainer``'s eager loop (sharded over a ``DeviceMesh`` with
+``Trainer(mesh=)``), so only ``segment_plan`` comes across.  The reference
+reads the data/model axis sizes off a jax ``Mesh``; the port takes them as
+an ``{axis: size}`` dict (``parallel.sharding.axis_sizes_of`` of a
+``DeviceMesh``: the launcher passes its host mesh's under ``torchrun``), by
+default ``{"data": 1, "model": 1}`` (one card).
 """
 
 from __future__ import annotations

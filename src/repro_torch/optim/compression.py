@@ -5,13 +5,20 @@
 quantization (one f32 scale per 256-element block), in plain torch as the
 reference's are plain jnp.  ``straight_through_roundtrip`` is the value a
 ``quantize`` storage strategy replays from storage, with an identity
-gradient.  The error-feedback and ``shard_map`` halves of the reference
-module wait for ROADMAP.md module queue, item 'Multi-device'.
+gradient.  ``quantize_roundtrip_with_feedback`` / ``init_error_feedback``
+are the reference's error-feedback round-trip of the gradients, on lists
+or dicts of tensors; ``Trainer(compress_grads=True)`` runs its one-tensor
+step, ``roundtrip_leaf_with_feedback``, gradient by gradient.  The
+reference's ``hierarchical_psum`` (a ``shard_map`` collective, which
+nothing in the reference calls) waits for ROADMAP.md module queue, item
+'Multi-device'.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
+
+import torch.utils._pytree as pytree
 
 import torch
 
@@ -64,3 +71,30 @@ def roundtrip_with_payload(x: torch.Tensor) -> Tuple[torch.Tensor, Compressed]:
     c = compress(x.detach())
     rt = decompress(c).to(x.dtype)
     return x + (rt - x).detach(), c
+
+
+def roundtrip_leaf_with_feedback(g: torch.Tensor,
+                                 e: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback int8 round-trip of one tensor: g' = Q(g + e);
+    e' = (g + e) − g' (``e`` f32).  Numerically this is what a compressed
+    all-reduce applies to each shard; the Trainer runs it on each
+    gradient's local value."""
+    target = g.to(torch.float32) + e
+    q = decompress(compress(target))
+    return q.to(g.dtype), target - q
+
+
+def quantize_roundtrip_with_feedback(grads: Any, error: Any) -> Tuple[Any, Any]:
+    """:func:`roundtrip_leaf_with_feedback` over pytrees of one structure
+    (the reference's signature)."""
+    flat_g, spec = pytree.tree_flatten(grads)
+    flat_e = pytree.tree_leaves(error)
+    outs = [roundtrip_leaf_with_feedback(g, e) for g, e in zip(flat_g, flat_e)]
+    return (pytree.tree_unflatten([o[0] for o in outs], spec),
+            pytree.tree_unflatten([o[1] for o in outs], spec))
+
+
+def init_error_feedback(like: Any) -> Any:
+    """Zero f32 error buffers shaped like ``like``'s tensors (same
+    devices; a DTensor gets a DTensor in its placements)."""
+    return pytree.tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32), like)

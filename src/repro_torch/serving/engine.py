@@ -138,12 +138,16 @@ class Engine:
         ``"wallclock"``: plans at the budget are ranked by the replay
         simulator's step time, and each lowered twin's
         ``report.replayed_seconds`` is the chosen plan's predicted step
-        seconds.
+        seconds.  The reference plans with the engine's mesh; sharded
+        scoring (``in_shardings``) needs that mesh, i.e. sharded decode,
+        and raises naming ROADMAP.md 'Multi-device'.
         """
         from repro_torch.core.lowering import plan_function
 
-        return plan_function(loss_fn, budget, in_shardings=in_shardings,
-                             objective=objective, **kw)
+        if in_shardings is not None:
+            raise not_ported("sharded scoring (in_shardings= over the engine's mesh)",
+                             "Multi-device")
+        return plan_function(loss_fn, budget, objective=objective, **kw)
 
     # ------------------------------------------------------------ admission
 

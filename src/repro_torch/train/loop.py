@@ -15,7 +15,9 @@ Ported responsibilities:
   steps and at the end of a run (``checkpointing.AsyncCheckpointer``, the
   reference's format); ``maybe_restore`` resumes from the latest committed
   step.  The state is the parameters, the AdamW moments and the step, so a
-  restarted run continues bitwise;
+  restarted run continues bitwise.  In a process group rank 0 writes
+  and every rank restores, the ranks meeting at a barrier once the write
+  has committed;
 * **plan cache** — ``plan_cache_dir`` attaches the on-disk recomputation-plan
   store (core.plan_cache), so a restarted job recovers its remat plan as a
   lookup instead of a re-solve;
@@ -23,14 +25,29 @@ Ported responsibilities:
   come from ``repro_torch.plan_function`` applied to the loss over
   ``torch.func.functional_call`` of the model: traced with ``make_fx``,
   planned under the budget and lowered by the default backend (``"fx"``),
-  once per batch signature (later steps neither re-trace nor re-plan).
+  once per batch signature (later steps neither re-trace nor re-plan);
+* **gradient compression** — ``compress_grads`` runs the reference's int8
+  error-feedback round-trip (``optim.compression``) on the gradients'
+  local values before the update;
+* **data-parallel steps** — ``Trainer(mesh=DeviceMesh)``: the model's
+  parameters, the AdamW moments and the error feedback become DTensors on
+  the mesh, replicated (sharded parameters, FSDP, wait: ROADMAP.md
+  'Multi-device'), each batch is ``Shard(0)`` over the data axes, and the
+  step (plain autograd or the planned twin of ``plan_function(mesh=,
+  in_shardings=)``, which budgets per-device bytes) returns every gradient
+  in its parameter's placements:
+  a replicated parameter's ``Partial`` gradient is all-reduced there.
+  The update runs on the local tensors.  A model axis larger than 1
+  raises (ROADMAP.md 'Multi-device');
+* **elastic re-mesh** — ``remesh(new_mesh)`` moves the live parameters,
+  moments and error feedback onto the new mesh (or off any mesh) and
+  rebuilds the step; the planned step re-plans under the new per-device
+  bytes (a new digest).
 
 The reference jits a step that donates a private copy of the params; the
 port trains the given module in place (a copy would double 11 GB of f32
 masters at stablelm-3b width), so a checkpoint is copied to the host
-before the next step updates it.  Int8 gradient compression
-(``compress_grads``) and ``remesh`` raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+before the next step updates it.
 """
 
 from __future__ import annotations
@@ -44,16 +61,21 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 from torch import nn
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpointing import AsyncCheckpointer, latest_step, restore
+from repro_torch.core.lowering.base import (
+    check_executable_mesh,
+    in_layout,
+    on_mesh,
+    value_out,
+)
+from repro_torch.core.lowering.base import local_tensor as _local
 from repro_torch.optim import adamw
+from repro_torch.optim.compression import init_error_feedback, roundtrip_leaf_with_feedback
+from repro_torch.parallel import sharding as sh
 from repro_torch.weights import reference_ndim
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md module queue, item {item!r}"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +91,11 @@ class TrainConfig:
     # On-disk recomputation-plan cache (core.plan_cache); None keeps the
     # cache in memory only.
     plan_cache_dir: Optional[str] = None
-    # Activation-byte budget of the DP recomputation plan: when set, the
-    # step's value and grads are ``plan_function(loss, plan_budget)``.  None
-    # keeps plain autograd (losses whose remat the launcher already planned
-    # through segment_sizes stay on that path).
+    # Per-device activation-byte budget of the DP recomputation plan: when
+    # set, the step's value and grads are ``plan_function(loss, plan_budget,
+    # mesh=, in_shardings=)`` with the Trainer's mesh.  None keeps plain
+    # autograd (losses whose remat the launcher already planned through
+    # segment_sizes stay on that path).
     plan_budget: Optional[float] = None
     optimizer: adamw.AdamWConfig = dataclasses.field(
         default_factory=adamw.AdamWConfig
@@ -103,6 +126,13 @@ def functional_loss(loss_fn, model: nn.Module):
     return fn, params
 
 
+def _onto(t: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """``t``'s value (replicated: each rank holds all of it) replicated on
+    ``mesh`` without sending anything, or plain without a mesh."""
+    full = _local(t.detach())
+    return full if mesh is None else sh.place(full, mesh, ())
+
+
 class Trainer:
     def __init__(
         self,
@@ -110,9 +140,8 @@ class Trainer:
         model: nn.Module,
         cfg: TrainConfig,
         device="cuda",
+        mesh: Any = None,
     ):
-        if cfg.compress_grads:
-            raise _not_ported("compress_grads", "Multi-device")
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.model = model
@@ -126,39 +155,145 @@ class Trainer:
         self.params = [p for _, p in named]
         self.decay = [reference_ndim(n, p) >= 2 for n, p in named]
         self.opt_state = adamw.init(self.params)
+        self.err_fb = init_error_feedback(self.params) if cfg.compress_grads else None
+        self.mesh = None
+        if mesh is not None:
+            self._set_mesh(mesh)
         self.planned = None
-        if cfg.plan_budget is not None:
-            from repro_torch.core.lowering import plan_function
-
-            step_loss, self._by_key = functional_loss(loss_fn, model)
-            self.planned = plan_function(step_loss, cfg.plan_budget)
+        self._build_step()
         self.step = 0
         self.skipped = 0
         self.straggler_steps = 0
         self._ewma: Optional[float] = None
         self.on_straggler: Optional[Callable[[int, float, float], None]] = None
+        # in a process group only rank 0 writes: the ranks' replicated
+        # states are one state, and writers sharing a directory would race
+        writes = not dist.is_initialized() or dist.get_rank() == 0
         self._ckpt = (AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.ckpt_keep)
-                      if cfg.ckpt_dir else None)
+                      if cfg.ckpt_dir and writes else None)
         self._saved_step: Optional[int] = None
+        #: on a mesh, the collectives of the first step (``census.
+        #: CountCollectives.stats``: calls, payload and ring wire bytes per op)
+        self.comm_stats: Optional[Dict[str, Dict[str, float]]] = None
+
+    # ------------------------------------------------------------- the mesh
+
+    def _set_mesh(self, mesh: Any) -> None:
+        """Lay the parameters, moments and error feedback out on ``mesh``,
+        replicated (None: back to plain tensors)."""
+        if mesh is not None:
+            check_executable_mesh(mesh)
+            if not sh.is_device_mesh(mesh):
+                raise ValueError("Trainer(mesh=) runs on a torch.distributed DeviceMesh; "
+                                 "an {axis: size} dict only prices plans (plan_function)")
+        self._replace_params([_onto(p, mesh) for p in self.params])
+        st = self.opt_state
+        st.mu = [_onto(m, mesh) for m in st.mu]
+        st.nu = [_onto(v, mesh) for v in st.nu]
+        if self.err_fb is not None:
+            self.err_fb = [_onto(e, mesh) for e in self.err_fb]
+        self.mesh = mesh
+
+    def _batch_spec(self, t: torch.Tensor) -> sh.Spec:
+        """``Shard(0)`` over the data axes (the logical ``"batch"`` axis)."""
+        return tuple(sh.resolve(("batch",) + (None,) * (t.dim() - 1), self.mesh, shape=None))
+
+    def _replace_params(self, tensors) -> None:
+        """Swap the model's trainable parameters for ``tensors`` (new
+        ``nn.Parameter`` objects, in ``self.names`` order)."""
+        params = []
+        for name, t in zip(self.names, tensors):
+            mod_name, _, leaf = name.rpartition(".")
+            mod = self.model.get_submodule(mod_name)
+            p = nn.Parameter(t, requires_grad=True)
+            mod._parameters[leaf] = p
+            params.append(p)
+        self.params = params
+
+    def _build_step(self) -> None:
+        """The step's planned twin (``plan_budget``), under the current mesh."""
+        self.planned = None
+        if self.cfg.plan_budget is None:
+            return
+        from repro_torch.core.lowering import plan_function
+
+        step_loss, self._by_key = functional_loss(self.loss_fn, self.model)
+        kw = {} if self.mesh is None else dict(mesh=self.mesh, in_shardings=(None, None))
+        self.planned = plan_function(step_loss, self.cfg.plan_budget, **kw)
+
+    def remesh(self, new_mesh: Any) -> None:
+        """Elastic re-mesh: move the live parameters, AdamW moments and
+        error feedback onto ``new_mesh``, replicated, or off any mesh
+        (``new_mesh=None``), and rebuild the step.  A planned step re-plans
+        under the new per-device bytes, so its plan-cache digest is new."""
+        self._set_mesh(new_mesh)
+        self._build_step()
+        self.comm_stats = None
 
     # ------------------------------------------------------------- step fn
 
+    def _place_batch(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """On a mesh, each plain batch tensor is this process's slice of the
+        global batch (the pipeline's ``host_id`` slice, in rank order along
+        the data axes) and becomes a DTensor in its batch spec; a DTensor is
+        redistributed onto it."""
+        if self.mesh is None:
+            return batch
+        out = {}
+        for k, t in batch.items():
+            want = sh.spec_to_placements(self._batch_spec(t), self.mesh)
+            if isinstance(t, DTensor):
+                out[k] = t if list(t.placements) == want else t.redistribute(self.mesh, want)
+            else:
+                out[k] = DTensor.from_local(t, self.mesh, want, run_check=False)
+        return out
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-        """One step; returns loss, grad_norm, lr (floats) and ok (bool)."""
-        if self.planned is None:
-            loss = self.loss_fn(self.model, batch)
-            grads = torch.autograd.grad(loss, self.params)
-        else:
-            loss, by_key = self.planned(self._by_key, batch)
-            grads = [by_key[k] for k in self._by_key]
-        gnorm = adamw.global_norm(grads)
-        loss_f, gnorm_f = float(loss.detach()), float(gnorm)
+        """One step; returns loss, grad_norm, lr (floats) and ok (bool).  On
+        a mesh the first step also records its collectives
+        (``comm_stats``)."""
+        if self.mesh is not None and self.comm_stats is None:
+            from repro_torch.analysis.census import CountCollectives
+
+            with CountCollectives() as counted:
+                out = self._step(batch)
+            self.comm_stats = counted.stats
+            return out
+        return self._step(batch)
+
+    def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        batch = self._place_batch(batch)
+        with on_mesh(self.params):
+            if self.planned is None:
+                loss = self.loss_fn(self.model, batch)
+                grads = [in_layout(g, p) for g, p in
+                         zip(torch.autograd.grad(loss, self.params), self.params)]
+                loss = value_out(loss)
+            else:
+                loss, by_key = self.planned(self._by_key, batch)
+                grads = [by_key[k] for k in self._by_key]
+        grads = [_local(g) for g in grads]
+        if self.err_fb is not None:
+            # leaf by leaf, so the codec holds one leaf's temporaries, not a
+            # second and third copy of every gradient
+            for i, e in enumerate(self.err_fb):
+                grads[i], new_err = roundtrip_leaf_with_feedback(grads[i], _local(e))
+                with torch.no_grad():
+                    _local(e).copy_(new_err)
+                del new_err
+        gnorm = adamw.global_norm(grads)  # replicated: the local grads are whole
+        loss_f, gnorm_f = float(_local(loss)), float(gnorm)
         # NaN guard: skip the update when loss/grad-norm is non-finite.
         ok = math.isfinite(loss_f) and math.isfinite(gnorm_f)
         lr = adamw.lr_schedule(self.cfg.optimizer, self.opt_state.step + 1)
         if ok:
-            lr = adamw.update(self.cfg.optimizer, grads, self.opt_state, self.params,
-                              decay=self.decay, gnorm=gnorm)["lr"]
+            st = self.opt_state
+            local_state = adamw.AdamWState(st.step, [_local(m) for m in st.mu],
+                                           [_local(v) for v in st.nu])
+            lr = adamw.update(self.cfg.optimizer, grads, local_state,
+                              [_local(p) for p in self.params], decay=self.decay,
+                              gnorm=gnorm)["lr"]
+            st.step = local_state.step
         return {"loss": loss_f, "grad_norm": gnorm_f, "lr": lr, "ok": ok}
 
     # --------------------------------------------------------- run control
@@ -166,19 +301,21 @@ class Trainer:
     def state(self) -> Dict[str, Any]:
         """The checkpointed state, in the reference's tree layout:
         ``{"params": ..., "opt": {"step", "mu", "nu"}}``, keyed by parameter
-        name."""
+        name (on a mesh, the local values: replicated, so whole)."""
         st = self.opt_state
-        return {"params": dict(zip(self.names, self.params)),
-                "opt": {"step": st.step, "mu": dict(zip(self.names, st.mu)),
-                        "nu": dict(zip(self.names, st.nu))}}
+
+        def named(ts):
+            return {n: _local(t) for n, t in zip(self.names, ts)}
+
+        return {"params": named(self.params),
+                "opt": {"step": st.step, "mu": named(st.mu), "nu": named(st.nu)}}
 
     def maybe_restore(self) -> bool:
         """Resume from the latest committed checkpoint, if any: parameters
         and moments are overwritten in place, and the step is restored."""
         if not self.cfg.ckpt_dir:
             return False
-        if self._ckpt:
-            self._ckpt.wait()
+        self._sync_checkpoints()
         s = latest_step(self.cfg.ckpt_dir)
         if s is None:
             return False
@@ -194,16 +331,26 @@ class Trainer:
 
     def save(self, wait: bool = False) -> None:
         """Checkpoint the state at the current step (copied to the host
-        before this returns; written on the checkpointer's thread).  A step
-        already saved is not written again (the final save of a run that
-        ends on a periodic one)."""
-        if not self._ckpt:
+        before this returns; written on the checkpointer's thread, rank 0's
+        in a process group).  A step already saved is not written again (the
+        final save of a run that ends on a periodic one).  ``wait`` returns
+        once the write has committed, on every rank."""
+        if not self.cfg.ckpt_dir:
             return
-        if self._saved_step != self.step:
+        if self._ckpt and self._saved_step != self.step:
             self._ckpt.save_async(self.step, self.state())
-            self._saved_step = self.step
+        self._saved_step = self.step
         if wait:
+            self._sync_checkpoints()
+
+    def _sync_checkpoints(self) -> None:
+        """Wait for this rank's writes, then (in a process group of more
+        than one rank) for every rank: past this, rank 0's saves have
+        committed and each rank may read them."""
+        if self._ckpt:
             self._ckpt.wait()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def close(self) -> None:
         if self._ckpt:
@@ -253,9 +400,9 @@ class Trainer:
                     f"{dt*1e3:.0f} ms"
                     + (f"  [skipped={self.skipped}]" if self.skipped else "")
                 )
-            if self._ckpt and self.step % c.ckpt_every == 0:
+            if c.ckpt_dir and self.step % c.ckpt_every == 0:
                 self.save()
-        if self._ckpt:
+        if c.ckpt_dir:
             self.save(wait=True)
         return {
             "final_loss": losses[-1] if losses else float("nan"),
@@ -267,5 +414,4 @@ class Trainer:
             "step": self.step,
         }
 
-    def remesh(self, *args: Any, **kwargs: Any) -> None:
-        raise _not_ported("remesh", "Multi-device")
+

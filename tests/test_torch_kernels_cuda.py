@@ -350,3 +350,65 @@ def test_cuda_drift_gate_is_ok_on_a_planned_mlp():
     assert res.drift["drift_status"] == "ok", res.drift
     assert res.drift["temp_bytes"] <= res.drift["vanilla_temp_bytes"]
     assert res.census.extra == res.census.plan_recompute > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_op_under_dtensor_is_bitwise_plain(causal, tmp_path):
+    """The custom op on DTensors of a one-rank NCCL mesh (batch ``Shard(0)``
+    over ``data``, as the data-parallel twin lays it out): its sharding
+    rules hand the kernels the local tensors, so output, lse and the
+    gradients are bitwise those of the op on plain tensors, and the
+    gradients keep the inputs' placements."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        q, k, v, do = (torch.tensor(x).to("cuda", torch.bfloat16).transpose(1, 2).contiguous()
+                       for x in make(2, 8, 4, 256, 256, 64, seed=11))
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, lse = ops.flash_attention_op(*plain, causal)
+        grads = torch.autograd.grad(out, plain, do)
+        place = [Shard(0), Shard(0)]
+        dts = [distribute_tensor(t, mesh, place).requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        dout, dlse = ops.flash_attention_op(*dts, causal)
+        dgrads = torch.autograd.grad(dout, dts, distribute_tensor(do, mesh, place))
+        assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        assert torch.equal(dout.to_local(), out) and torch.equal(dlse.to_local(), lse)
+        for got, want in zip(dgrads, grads):
+            assert list(got.placements) == place
+            assert torch.equal(got.to_local(), want)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_dtensors(tmp_path):
+    """A DTensor never reaches the ctypes wrappers: they raise on one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        q, k, v, _ = (distribute_tensor(torch.tensor(x).to("cuda", torch.bfloat16), mesh,
+                                        [Replicate()])
+                      for x in make(1, 2, 2, 64, 64, 64, seed=3))
+        with pytest.raises(TypeError, match="local tensors"):
+            fa.flash_attention_fwd(q, k, v)
+    finally:
+        dist.destroy_process_group()

@@ -176,10 +176,33 @@ def test_changed_structure_retraces(setup):
     assert len(planned._memo) == 2
 
 
-@pytest.mark.parametrize("kw", [dict(mesh={"data": 8}), dict(in_shardings=[None, None])])
-def test_what_is_not_ported_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        repro_torch.plan_function(mlp, 1e6, **kw)
+def _dropout_mlp(params, x):
+    h = x
+    for w in params:
+        h = torch.nn.functional.dropout(torch.tanh(h @ w), 0.5, training=True)
+    return torch.sum(h * h)
+
+
+@pytest.mark.parametrize("fn,kw", [(mlp, dict(strategies=("offload", "quantize"))),
+                                   (_dropout_mlp, dict())])
+def test_what_is_not_ported_raises(fn, kw, setup, tmp_path):
+    """``mesh=``/``in_shardings=`` are ported (``tests/test_torch_sharded_planning.py``);
+    on a DeviceMesh (a one-rank gloo group here) a strategy plan and a
+    recomputed random draw are not, and raise naming ROADMAP.md."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    params, x, _, _ = setup
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        planned = repro_torch.plan_function(fn, None, mesh=mesh,
+                                            planner=Planner(cache=PlanCache()), **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            planned(params, x)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_blockgraph_goes_through_the_segment_backend():

@@ -173,9 +173,13 @@ def test_nan_guard_skips_the_step():
 
 
 def test_trainer_raises_for_what_is_not_ported():
+    """``compress_grads`` and ``mesh=`` are ported
+    (``tests/test_torch_distributed_train.py``); a mesh whose model axis is
+    larger than 1 is not."""
     _, _, _, plm = _small()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(lambda m, b: m.loss(b), plm, TrainConfig(compress_grads=True), device="cpu")
+        Trainer(lambda m, b: m.loss(b), plm, TrainConfig(compress_grads=True), device="cpu",
+                mesh={"data": 1, "model": 2})
 
 
 def test_launcher_runs_on_cpu_with_the_reference_plan():

@@ -1,0 +1,443 @@
+"""Multi-process CPU workers for the port's sharded tests (imports no JAX).
+
+The tests hold the port's DTensor execution on a ``torch.distributed`` mesh
+of gloo ranks on the CPU.  :func:`spawn` starts one process per rank
+(``python torch_dist_workers.py <case> <rank> <world> <dir>``), each joining
+a process group through a ``FileStore`` in ``dir`` (no port is opened), and
+waits for all of them under a deadline; past it every rank is killed and
+the test fails.  Inputs come from the parent as ``dir/in.npz`` (the tests
+compute the JAX reference values in the parent, on the same numpy arrays),
+and each rank writes its results to ``dir/out<rank>.npz``: numpy arrays,
+booleans for the checks made inside the ranks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Callable, Dict, List
+
+import numpy as np
+
+DEADLINE = 120.0  # seconds for one spawn of all ranks, set-up included
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def spawn(case: str, world: int, tmp: Path, inputs: Dict[str, np.ndarray],
+          deadline: float = DEADLINE) -> List[Dict[str, np.ndarray]]:
+    """Run ``case`` on ``world`` gloo ranks; returns each rank's results.
+    Fails (AssertionError) on a rank's error or at the deadline."""
+    tmp = Path(tmp)
+    (tmp / "store").unlink(missing_ok=True)  # a FileStore must start empty
+    np.savez(tmp / "in.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, __file__, case, str(r), str(world), str(tmp)],
+                              env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    end = time.monotonic() + deadline
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read()[-4000:])
+        f.close()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, (f"{case}: rank {r} exited {p.returncode} (killed at the "
+                                   f"{deadline:.0f} s deadline if negative)\n{texts[r]}")
+    return [dict(np.load(tmp / f"out{r}.npz")) for r in range(world)]
+
+
+# --------------------------------------------------------------------- cases
+
+
+def _mlp(params, x):
+    import torch
+
+    h = x
+    for w in params:
+        h = torch.tanh(h @ w)
+    return torch.sum(h * h)
+
+
+def _attention(params, x):
+    """A position term made inside the function (a plain tensor the twin
+    meets as replicated), a projection, the flash-attention custom op over
+    2 heads, a loss."""
+    import torch
+
+    from repro_torch.kernels.ops import flash_attention
+
+    wq, wk, wv = params
+    B, S, D = x.shape
+    x = x + 0.01 * torch.arange(S, dtype=x.dtype, device=x.device)[None, :, None]
+    q, k, v = ((x @ w).reshape(B, S, 2, D // 2) for w in (wq, wk, wv))
+    out = flash_attention(q, k, v, causal=True)
+    return torch.sum(out * out)
+
+
+def _bits(a, b) -> bool:
+    """Bitwise equality of two pytrees of (D)Tensors, on the local shards."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        type(x) is type(y) and getattr(x, "placements", None) == getattr(y, "placements", None)
+        and torch.equal(getattr(x, "_local_tensor", x), getattr(y, "_local_tensor", y))
+        for x, y in zip(la, lb))
+
+
+def _full(t) -> np.ndarray:
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy()
+
+
+def case_sharding(inp, rank, world):
+    """DTensor placements of the torch half of ``parallel/sharding.py``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel import sharding as sh
+
+    m41 = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "model"))
+    m22 = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    x = torch.tensor(inp["x"])
+    out = {}
+    d = sh.place(x, m41, ("data", None))
+    out["place_shards_dim0"] = (list(d.placements) == [Shard(0), Replicate()]
+                                and tuple(d.to_local().shape) == (8 // world, 6)
+                                and torch.equal(d.full_tensor(), x))
+    out["normalize_spec_of_dtensor"] = sh.normalize_spec(d) == ("data", None)
+    out["normalize_spec_of_placements"] = sh.normalize_spec(
+        [Replicate(), Shard(1)], mesh=m22, ndim=2) == (None, "model")
+    r = sh.shard(d, None, None)
+    out["shard_replicates"] = (all(p.is_replicate() for p in r.placements)
+                               and torch.equal(r.to_local(), x))
+    b = sh.shard(sh.place(x, m41, ()), "batch", None)
+    out["shard_batch_over_data"] = list(b.placements) == [Shard(0), Replicate()]
+    out["shard_passes_plain_tensors"] = sh.shard(x, "batch", None) is x
+    both = sh.place(x, m22, ("data", "model"))
+    out["place_two_axes"] = (list(both.placements) == [Shard(0), Shard(1)]
+                             and sh.normalize_spec(both) == ("data", "model")
+                             and torch.equal(both.full_tensor(), x))
+    joint = sh.place(x, m22, (("data", "model"), None))
+    out["place_joint_axes"] = (sh.normalize_spec(joint) == (("data", "model"), None)
+                               and torch.equal(joint.full_tensor(), x))
+    params = {"layers.0.attn.wq": torch.zeros(64, 128), "layers.0.attn.wo": torch.zeros(128, 64),
+              "embedding.embed": torch.zeros(255, 64), "layers.0.ln1.scale": torch.zeros(64),
+              "layers.0.mlp.w_down": torch.zeros(512, 512)}
+    tree = sh.named_sharding_tree(params, m22)
+    out["named_sharding_tree"] = tree == {
+        "layers.0.attn.wq": [Replicate(), Shard(1)], "layers.0.attn.wo": [Replicate(), Shard(0)],
+        "embedding.embed": [Replicate(), Replicate()],  # 255 rows: indivisible
+        "layers.0.ln1.scale": [Replicate(), Replicate()],
+        "layers.0.mlp.w_down": [Replicate(), Shard(0)]}
+    fsdp = sh.named_sharding_tree(params, m22, fsdp=True)
+    out["named_sharding_tree_fsdp"] = (fsdp["layers.0.mlp.w_down"] == [Shard(1), Shard(0)]
+                                       and fsdp["layers.0.attn.wq"] == [Replicate(), Shard(1)])
+    return {k: np.array(bool(v)) for k, v in out.items()}
+
+
+def case_planning(inp, rank, world):
+    """Sharded planned twins against sharded vanilla autograd, bitwise, on
+    the three backends; grads in the inputs' placements; conformance on the
+    concrete mesh; what raises on a DeviceMesh."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    import repro_torch
+    from repro_torch.analysis import check_lowering
+    from repro_torch.core import PlanCache, Planner
+    from repro_torch.core.blockgraph import Block, BlockGraph
+    from repro_torch.core.fx_graph import trace
+    from repro_torch.core.liveness import vanilla_peak
+    from repro_torch.core.lowering import TracedCarrier, vanilla_traced_value_and_grad
+    from repro_torch.core.lowering.base import check_plan_on_mesh
+    from repro_torch.core.lowering.fx import fx_value_and_grad
+    from repro_torch.core.lowering.interpreter import vanilla_value_and_grad
+    from repro_torch.core.schedule import make_plan
+    from repro_torch.parallel import sharding as sh
+
+    mesh = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "model"))
+    n = len([k for k in inp if k[0] == "w"])
+    params = [torch.tensor(inp[f"w{i}"]) for i in range(n)]
+    x = torch.tensor(inp["x"])
+    specs = (None, ("data", None))
+    out: Dict[str, np.ndarray] = {}
+
+    g_sh = trace(_mlp, params, x, mesh=mesh, in_shardings=[()] * n + [("data", None)]).graph
+    g = trace(_mlp, params, x).graph
+    out["per_device_mv"] = np.array(g_sh.mem_v)
+    budget = vanilla_peak(g_sh, liveness=False) / 2
+    for backend in ("fx", "interpreter"):
+        pf = repro_torch.plan_function(_mlp, budget, mesh=mesh, in_shardings=specs,
+                                       backend=backend, planner=Planner(cache=PlanCache()))
+        low = pf.lowered_for(params, x)
+        got = pf(params, x)
+        ref = vanilla_traced_value_and_grad(low.carrier)(params, x)
+        out[f"{backend}_recomputes"] = np.array(low.plan.overhead > 0
+                                                and low.plan.peak_memory <= budget)
+        out[f"{backend}_bitwise_vanilla"] = np.array(_bits(got, ref))
+        out[f"{backend}_placements"] = np.array(
+            all(p.is_replicate() for p in got[0].placements)
+            and all(list(gw.placements) == [Replicate(), Replicate()] for gw in got[1]))
+        out[f"{backend}_loss"] = _full(got[0])
+        for i, gw in enumerate(got[1]):
+            out[f"{backend}_g{i}"] = _full(gw)
+    audited = repro_torch.plan_function(_mlp, budget, mesh=mesh, in_shardings=specs,
+                                        track_live=True, planner=Planner(cache=PlanCache()))
+    *_, live = audited(params, x)
+    out["live_bytes_within_per_device_peak"] = np.array(
+        0 < max(b for _, b in live) <= audited.lowered_for(params, x).plan.peak_memory)
+    out["sharded_plan_differs"] = np.array(
+        repro_torch.plan_function(_mlp, budget, mesh=mesh, in_shardings=specs)
+        .lowered_for(params, x).plan.peak_memory <= budget < vanilla_peak(g, liveness=False))
+
+    # grads w.r.t. the sharded argument come back in its placements
+    pf = repro_torch.plan_function(_mlp, None, argnums=1, mesh=mesh, in_shardings=specs,
+                                   planner=Planner(cache=PlanCache()))
+    loss, gx = pf(params, x)
+    ref = vanilla_traced_value_and_grad(pf.lowered_for(params, x).carrier)(params, x)
+    out["gx_keeps_input_placements"] = np.array(list(gx.placements) == [Shard(0), Replicate()])
+    out["gx_bitwise_vanilla"] = np.array(_bits((loss, gx), ref))
+
+    # conformance on the concrete-mesh twin, and drift against a stale lowering
+    carrier = TracedCarrier.trace(_mlp, (params, x), mesh=mesh, in_shardings=specs)
+    planner = Planner(cache=PlanCache())
+    cg = carrier.to_graph()
+    tight = planner.plan(cg, planner.min_feasible_budget(cg)).plan
+    out["check_lowering_ok"] = np.array(check_lowering(carrier, tight).ok)
+    roomy = planner.plan(cg, vanilla_peak(cg, liveness=True)).plan
+    stale = fx_value_and_grad(carrier, tight)
+    out["check_lowering_catches_drift"] = np.array(
+        roomy.cached == tight.cached or not check_lowering(carrier, roomy, lowered=stale).ok)
+
+    # a BlockGraph on the "segment" backend, outputs pinned to ("batch", None)
+    def mk(name, src):
+        return Block(name, lambda p, h: torch.tanh(h @ p["w"]), (src,),
+                     out_sharding=("batch", None))
+
+    nb = len([k for k in inp if k.startswith("bw")])
+    bg = BlockGraph([mk(f"b{i}", "x" if i == 0 else f"b{i-1}") for i in range(nb)],
+                    ["x"], [f"b{nb - 1}"])
+    bparams = {f"b{i}": {"w": sh.place(torch.tensor(inp[f"bw{i}"]), mesh, ())}
+               for i in range(nb)}
+    binputs = {"x": sh.place(torch.tensor(inp["bx"]), mesh, ("data", None))}
+
+    def sq(o):
+        return torch.sum(o * o)
+
+    pf = repro_torch.plan_function(bg, None, backend="segment", loss_fn=sq, mesh=mesh,
+                                   planner=Planner(cache=PlanCache()))
+    low = pf.lowered_for(bparams, binputs)
+    got = pf(bparams, binputs)
+    ref = vanilla_value_and_grad(bg, sq)(bparams, binputs)
+    out["segment_bitwise_vanilla"] = np.array(_bits(got, ref))
+    out["segment_per_device_mv"] = np.array(low.carrier.to_graph().mem_v)
+    out["segment_loss"] = _full(got[0])
+    for i in range(nb):
+        out[f"segment_g{i}"] = _full(got[1][f"b{i}"]["w"])
+
+    # the flash-attention custom op under its DTensor sharding rule
+    aparams = [torch.tensor(inp[f"aw{i}"]) for i in range(3)]
+    ax = torch.tensor(inp["ax"])
+    pf = repro_torch.plan_function(_attention, None, mesh=mesh, in_shardings=specs,
+                                   planner=Planner(cache=PlanCache()))
+    got = pf(aparams, ax)
+    ref = vanilla_traced_value_and_grad(pf.lowered_for(aparams, ax).carrier)(aparams, ax)
+    out["attention_bitwise_vanilla"] = np.array(_bits(got, ref))
+    out["attention_loss"] = _full(got[0])
+    for i in range(3):
+        out[f"attention_g{i}"] = _full(got[1][i])
+
+    # what raises on a DeviceMesh, naming ROADMAP.md 'Multi-device'
+    def raises(fn: Callable[[], object], match: str) -> bool:
+        try:
+            fn()
+        except NotImplementedError as e:
+            return match in str(e) and "Multi-device" in str(e)
+        return False
+
+    m22 = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    out["model_axis_raises"] = np.array(raises(
+        lambda: repro_torch.plan_function(_mlp, None, mesh=m22, in_shardings=specs)(params, x),
+        "model-axis execution"))
+    every = make_plan(cg, [frozenset(range(cg.n))])
+    out["strategy_raises"] = np.array(raises(
+        lambda: check_plan_on_mesh(carrier, dataclasses.replace(every, strategy={0: "offload"})),
+        "storage strategies"))
+
+    def dropout_loss(params, x):
+        return torch.sum(torch.nn.functional.dropout(x @ params[0], 0.5, training=True) ** 2)
+
+    drop = TracedCarrier.trace(dropout_loss, (params, x), mesh=mesh, in_shardings=specs)
+    dg = drop.to_graph()
+    out["redraw_raises"] = np.array(raises(
+        lambda: check_plan_on_mesh(drop, make_plan(dg, [frozenset(range(dg.n))])),
+        "random draws"))
+    return out
+
+
+def case_train(inp, rank, world):
+    """The reduced LM's Trainer on ``{data: world}``: plain, planned
+    (bitwise the plain one) and with compressed gradients, 3 steps each,
+    on this rank's slice of each global batch; then the launcher under the
+    group."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import functional_loss
+
+    mesh = init_device_mesh("cpu", (world, 1), mesh_dim_names=("data", "model"))
+    cfg = dataclasses.replace(reduced(get_config("stablelm-3b")), dtype="float32")
+    state = {k[len("p:"):]: torch.tensor(v) for k, v in inp.items() if k.startswith("p:")}
+    steps, seq, batch = int(inp["steps"]), int(inp["seq"]), int(inp["batch"])
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                  num_hosts=world, host_id=rank))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+
+    def model():
+        m = build_model(cfg, device="cpu")
+        m.load_state_dict(state, strict=True)
+        return m
+
+    def loss_fn(m, b):
+        return m.loss(b)
+
+    def run(**kw):
+        tr = Trainer(loss_fn, model(), TrainConfig(total_steps=steps, log_every=0,
+                                                   optimizer=opt, **kw), device="cpu",
+                     mesh=mesh)
+        res = tr.run(data.batch(i) for i in range(steps))
+        return tr, res
+
+    out: Dict[str, np.ndarray] = {}
+    plain, res = run()
+    out["losses"], out["grad_norms"] = np.array(res["losses"]), np.array(res["grad_norms"])
+    ar = plain.comm_stats["all_reduce"]
+    out["all_reduce_calls"] = np.array(ar["calls"])
+    out["all_reduce_payload"] = np.array(ar["payload_bytes"])
+    out["all_reduce_wire"] = np.array(ar["wire_bytes"])
+    out["param_bytes"] = np.array(sum(p.to_local().numel() * 4 for p in plain.params))
+    out["n_params"] = np.array(len(plain.params))
+
+    # the planned step at the minimal per-device budget of its own trace
+    fn, by_key = functional_loss(loss_fn, plain.model)
+    b0 = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
+    probe = repro_torch.plan_function(fn, None, mesh=mesh,
+                                      in_shardings=(None, ("data", None)))
+    budget = probe.lowered_for(by_key, plain._place_batch(b0)).plan.peak_memory
+    planned, pres = run(plan_budget=budget)
+    low = planned.planned.lowered_for(planned._by_key, planned._place_batch(b0))
+    out["planned_recomputes"] = np.array(low.plan.overhead > 0)
+    out["planned_bitwise"] = np.array(
+        pres["losses"] == res["losses"] and pres["grad_norms"] == res["grad_norms"]
+        and all(torch.equal(a.to_local(), b.to_local())
+                for a, b in zip(planned.params, plain.params)))
+    _, cres = run(compress_grads=True)
+    out["compressed_losses"] = np.array(cres["losses"])
+
+    # per-device pricing against what DTensor holds: each graph node's local
+    # bytes on this rank, from a node-by-node run of the trace on the mesh,
+    # within its priced M_v; the interpreter's live-byte audit within the
+    # plan's peak
+    import torch.utils._pytree as pytree
+
+    from repro_torch.core.lowering.base import local_tensor, on_mesh
+
+    carrier = probe.lowered_for(by_key, plain._place_batch(b0)).carrier
+    fxg, mem_v = carrier.fx, carrier.to_graph().mem_v
+    flat = carrier.flatten_args((by_key, plain._place_batch(b0)))
+    env, args = {}, iter(flat)
+    with on_mesh(flat), torch.no_grad():
+        for nd in fxg.gm.graph.nodes:
+            if nd.op == "placeholder":
+                env[nd] = next(args)
+            elif nd.op in ("call_function", "get_attr"):
+                env[nd] = fxg.run_node(nd, env.__getitem__)
+    local = [sum(local_tensor(t).numel() * local_tensor(t).element_size()
+                 for t in pytree.tree_leaves(env[nd]) if isinstance(t, torch.Tensor))
+             for nd in fxg.nodes]
+    out["local_bytes"], out["priced_mem_v"] = np.array(local), np.array(mem_v)
+    del env
+    audited = repro_torch.plan_function(fn, budget, mesh=mesh, backend="interpreter",
+                                        in_shardings=(None, ("data", None)), track_live=True)
+    *_, live = audited(by_key, plain._place_batch(b0))
+    out["live_peak"] = np.array(max(b for _, b in live))
+    out["plan_peak"] = np.array(audited.lowered_for(by_key, plain._place_batch(b0))
+                                .plan.peak_memory)
+
+    # the launcher joins the existing group (WORLD_SIZE set, as under torchrun)
+    # and checkpoints every step (rank 0 writes); with the last two steps'
+    # checkpoints gone, the same command resumes from step 1 on every rank
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpointing import latest_step
+    from repro_torch.launch import train as launcher
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0")
+    ckpt = os.path.join(str(inp["dir"]), "ckpt")
+    cmd = ["--reduced", "--steps", "3", "--batch", str(batch), "--seq", str(seq),
+           "--device", "cpu", "--ckpt-dir", ckpt, "--ckpt-every", "1"]
+    lout = launcher.main(cmd)
+    out["launcher_losses"] = np.array(lout["losses"])
+    out["launcher_all_reduce_payload"] = np.array(lout["comm"]["all_reduce"]["payload_bytes"])
+    out["ckpt_dirs"] = np.array(sorted(os.listdir(ckpt)))
+    out["ckpt_latest"] = np.array(latest_step(ckpt))
+    dist.barrier()
+    if rank == 0:
+        for s in (2, 3):
+            shutil.rmtree(os.path.join(ckpt, f"step_{s:09d}"))
+    dist.barrier()
+    again = launcher.main(cmd)
+    out["resumed_losses"] = np.array(again["losses"])
+    out["resumed_grad_norms"] = np.array(again["grad_norms"])
+    out["launcher_grad_norms"] = np.array(lout["grad_norms"])
+    return out
+
+
+CASES = {"sharding": case_sharding, "planning": case_planning, "train": case_train}
+
+
+def main() -> None:
+    case, rank, world, tmp = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank,
+                            world_size=world)
+    try:
+        inp = dict(np.load(tmp / "in.npz"), dir=np.array(str(tmp)))
+        res = CASES[case](inp, rank, world)
+        np.savez(tmp / f"out{rank}.npz", **res)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
