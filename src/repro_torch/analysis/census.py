@@ -151,11 +151,14 @@ def _group_size(group_name: Any) -> int:
 
 class CountCollectives(TorchDispatchMode):
     """Counts the ``_c10d_functional`` collectives dispatched while active:
-    ``stats[op] = {"calls", "payload_bytes", "wire_bytes"}`` per rank."""
+    ``stats[op] = {"calls", "payload_bytes", "wire_bytes"}`` per rank, and
+    the same split by process group (``by_group[group_name][op]``;
+    :meth:`by_axis` names a mesh's groups by their mesh dims)."""
 
     def __init__(self):
         super().__init__()
         self.stats: Dict[str, Dict[str, float]] = {}
+        self.by_group: Dict[str, Dict[str, Dict[str, float]]] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(getattr(t, "__name__", "") == "DTensor" for t in types):
@@ -170,14 +173,22 @@ class CountCollectives(TorchDispatchMode):
                           for t in pytree.tree_leaves(args[0]) if isinstance(t, torch.Tensor))
             out_bytes = sum(t.numel() * t.element_size()
                             for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor))
-            rec = self.stats.setdefault(op, {"calls": 0, "payload_bytes": 0, "wire_bytes": 0.0})
-            rec["calls"] += 1
-            rec["payload_bytes"] += payload
-            rec["wire_bytes"] += ring_wire_bytes(op, payload, out_bytes, _group_size(group))
+            wire = ring_wire_bytes(op, payload, out_bytes, _group_size(group))
+            for table in (self.stats, self.by_group.setdefault(str(group), {})):
+                rec = table.setdefault(op, {"calls": 0, "payload_bytes": 0, "wire_bytes": 0.0})
+                rec["calls"] += 1
+                rec["payload_bytes"] += payload
+                rec["wire_bytes"] += wire
         return out
 
     def total(self, key: str = "payload_bytes") -> float:
         return sum(r[key] for r in self.stats.values())
+
+    def by_axis(self, mesh: Any) -> Dict[str, Dict[str, Dict[str, float]]]:
+        """``by_group`` keyed by ``mesh``'s dim names (a group of no dim of
+        ``mesh`` keeps its group name)."""
+        names = {mesh.get_group(i).group_name: n for i, n in enumerate(mesh.mesh_dim_names)}
+        return {names.get(g, g): ops for g, ops in self.by_group.items()}
 
 
 def unpacked_recompute(carrier: Any, plan: ExecutionPlan, args: Sequence[Any]) -> FrozenSet[int]:

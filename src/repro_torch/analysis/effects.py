@@ -50,7 +50,7 @@ from torch import fx
 
 from ..core.fx_graph import FxGraph, is_view, op_name
 from ..core.graph import Graph, Node
-from ..core.prims import ATEN_PRNG, FLASH_OP
+from ..core.prims import ATEN_PRNG, FLASH_OP, SHARD_OP, VOCAB_EMBED_OP, VOCAB_PICK_OP
 from .report import Report
 
 #: Taint lattice, least to greatest.
@@ -127,6 +127,10 @@ def _classify(node: fx.Node) -> Tuple[str, str]:
             "formula; replaying its forward is not provably consistent with "
             "the residuals its backward expects, so its outputs must be "
             "stored, not recomputed")
+    if name == SHARD_OP:
+        return "pure", ""  # a copy, or a collective over the mesh: replays alike
+    if name in (VOCAB_EMBED_OP, VOCAB_PICK_OP):
+        return "pure", ""  # a lookup, on the whole or on local shards: replays alike
     if schema is None:
         return "opaque", (
             f"'{name}' is no aten op; the taint walker cannot see into it")

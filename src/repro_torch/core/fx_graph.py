@@ -63,7 +63,8 @@ from torch import fx
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from .graph import Graph, Node
-from .prims import ATEN_HEAVY, ATEN_KINDS, ATEN_NO_ALLOC, ATEN_VIEW_OPS, FLASH_OP
+from .prims import (ATEN_HEAVY, ATEN_KINDS, ATEN_NO_ALLOC, ATEN_VIEW_OPS, FLASH_OP, SHARD_OP,
+                    VOCAB_EMBED_OP, VOCAB_PICK_OP)
 
 
 def op_name(target: Any) -> str:
@@ -127,10 +128,22 @@ class FxGraph:
         return pytree.tree_leaves(out.args[0])[0]
 
     def run_node(self, node: fx.Node, read: Callable[[fx.Node], Any]) -> Any:
-        """Execute one fx node, reading its operands with ``read``."""
+        """Execute one fx node, reading its operands with ``read`` (a
+        sharding constraint through ``parallel.constraint.constrain``,
+        which redistributes a DTensor, and a vocab lookup through
+        ``parallel.vocab``, which runs on a DTensor's local shards)."""
         if node.op == "get_attr":
             return operator.attrgetter(node.target)(self.gm)
         args, kwargs = fx.node.map_arg((node.args, node.kwargs), read)
+        name = op_name(node.target)
+        if name == SHARD_OP:
+            from ..parallel.constraint import constrain
+
+            return constrain(*args, **kwargs)
+        if name in (VOCAB_EMBED_OP, VOCAB_PICK_OP):
+            from ..parallel import vocab
+
+            return (vocab.embed_rows if name == VOCAB_EMBED_OP else vocab.pick)(*args, **kwargs)
         return node.target(*args, **kwargs)
 
 
@@ -224,13 +237,18 @@ def tracing() -> bool:
     return _TRACING.get()
 
 
-def trace_module(fn: Callable[..., Any], *example_args: Any) -> fx.GraphModule:
+def trace_module(fn: Callable[..., Any], *example_args: Any, mesh: Any = None) -> fx.GraphModule:
     """``make_fx`` in fake mode (shapes, dtypes and devices only) of the
-    functionalized ``fn``."""
+    functionalized ``fn``.  With a ``mesh`` that splits more than the batch,
+    the models' sharding constraints (``parallel.sharding.shard``) are
+    traced as ``repro_torch::shard`` nodes."""
+    from ..parallel.sharding import tracing_on
+
     functional = torch.func.functionalize(fn, remove="mutations")
     token = _TRACING.set(True)
     try:
-        return make_fx(functional, tracing_mode="fake")(*example_args)
+        with tracing_on(mesh):
+            return make_fx(functional, tracing_mode="fake")(*example_args)
     finally:
         _TRACING.reset(token)
 
@@ -263,7 +281,7 @@ def trace(fn: Callable[..., Any], *example_args: Any, cost_model: str = "paper",
     With ``mesh`` (a ``DeviceMesh`` or an ``{axis: size}`` dict),
     ``in_shardings`` is one spec per flat tensor leaf of ``example_args``
     (None: all replicated) and node ``M_v`` becomes per-device bytes."""
-    gm = trace_module(fn, *global_fakes(example_args))
+    gm = trace_module(fn, *global_fakes(example_args), mesh=mesh)
     return from_graph_module(gm, cost_model=cost_model, mesh=mesh,
                              in_specs=None if in_shardings is None
                              else [tuple(s or ()) for s in in_shardings])

@@ -39,27 +39,27 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-#: The mesh axes a twin can run sharded over today; any other axis of a
-#: concrete mesh must have size 1.
-EXECUTABLE_AXES = ("pod", "data")
+#: The mesh axes a twin can run sharded over: the data axes and the model
+#: axis of tensor parallelism.  Any other axis of a concrete mesh must have
+#: size 1.
+EXECUTABLE_AXES = ("pod", "data", "model")
 
 
 def check_executable_mesh(mesh: Any) -> None:
-    """Raise for a mesh (a ``DeviceMesh`` or an ``{axis: size}`` dict) whose
-    model axes would shard execution: the data axes run, a model axis
-    larger than 1 is priced but not run."""
+    """Raise for a mesh (a ``DeviceMesh`` or an ``{axis: size}`` dict) with
+    an axis larger than 1 that no twin runs sharded over."""
     from ...parallel.sharding import axis_sizes_of
 
     for name, size in axis_sizes_of(mesh).items():
         if name not in EXECUTABLE_AXES and size > 1:
-            raise not_ported(f"model-axis execution (mesh axis {name!r} of size {size})",
+            raise not_ported(f"execution over mesh axis {name!r} of size {size}",
                              "Multi-device")
 
 
 def check_plan_on_mesh(carrier: Any, plan: ExecutionPlan) -> None:
     """What a twin cannot run on DTensors yet raises here, naming ROADMAP.md
-    'Multi-device', instead of running unsharded: a model axis, a storage
-    strategy (``storage.Stored`` holds plain pinned copies and int8
+    'Multi-device', instead of running unsharded: an axis no twin runs
+    over, a storage strategy (``storage.Stored`` holds plain pinned copies and int8
     blocks), and a recomputed random draw (the twin replays a saved
     generator state, which DTensor's own RNG tracker does not follow)."""
     from ...parallel.sharding import is_device_mesh

@@ -24,9 +24,10 @@ per-device.  ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` or a plain
 (the reference's ``with_sharding_constraint``) distributes plain
 arguments, and redistributes DTensor ones, onto the caller's placements;
 the loss comes back replicated and each gradient in its input's
-placements (``lowering.base.grads_like``).  Execution covers the mesh's
-data axes only: a model axis larger than 1 raises (ROADMAP.md
-'Multi-device').
+placements (``lowering.base.grads_like``).  Execution covers the data
+axes and the model axis (tensor parallelism: the models' sharding
+constraints are ``repro_torch::shard`` nodes of a trace on such a mesh);
+any other axis larger than 1 raises (ROADMAP.md 'Multi-device').
 """
 
 from __future__ import annotations
@@ -173,7 +174,7 @@ class TracedCarrier:
             return fn(*pytree.tree_unflatten(list(flat_args), in_spec))
 
         in_specs = None if mesh is None else _flat_arg_specs(args, in_shardings, mesh)
-        fxg = from_graph_module(trace_module(flat_fn, *global_fakes(flat)),
+        fxg = from_graph_module(trace_module(flat_fn, *global_fakes(flat), mesh=mesh),
                                 cost_model=cost_model, mesh=mesh,
                                 in_specs=None if in_specs is None else list(in_specs))
         val = fxg.output.meta.get("val")

@@ -321,9 +321,9 @@ def plan_function(
         ``DeviceMesh`` the twin runs on DTensors in the caller's
         placements: the loss comes back replicated and every gradient in
         its input's placements (a replicated parameter's gradient is
-        all-reduced).  The mesh's data axes run; a model axis larger than 1,
-        a strategy plan and a recomputed random draw raise
-        ``NotImplementedError`` (ROADMAP.md 'Multi-device').  BlockGraphs
+        all-reduced).  The mesh's data axes and its model axis run; any
+        other axis larger than 1, a strategy plan and a recomputed random
+        draw raise ``NotImplementedError`` (ROADMAP.md 'Multi-device').  BlockGraphs
         take ``mesh`` only (their blocks' ``out_sharding``).
     """
     if in_shardings is not None and mesh is None:

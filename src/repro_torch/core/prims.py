@@ -126,6 +126,15 @@ ATTENTION_KINDS = frozenset({"attention", "flash_attention", "custom_vjp_call"})
 #: The flash-attention custom op (``kernels.ops``).
 FLASH_OP = "repro_torch::flash_attention"
 
+#: The sharding constraint (``parallel.constraint``), traced on a mesh that
+#: splits more than the batch.
+SHARD_OP = "repro_torch::shard"
+
+#: Lookups along a vocab-sharded dim (``parallel.vocab``), traced on such a
+#: mesh: the embedding's rows and the loss's gold logit.
+VOCAB_EMBED_OP = "repro_torch::vocab_embed"
+VOCAB_PICK_OP = "repro_torch::vocab_pick"
+
 #: aten ops heavy under the paper's 10/1 model: the matmul/conv family and
 #: the flash-attention op.
 ATEN_HEAVY = frozenset({"mm", "bmm", "addmm", "convolution", FLASH_OP})
@@ -195,6 +204,7 @@ ATEN_KINDS = {
     "addmm": "dot_general",
     "convolution": "conv_general_dilated",
     FLASH_OP: "flash_attention",
+    SHARD_OP: "sharding_constraint",
     "tanh": "tanh",
     "mul": "mul",
     "add": "add",

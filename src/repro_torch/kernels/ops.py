@@ -21,8 +21,12 @@ again.  Its backward is a registered operator too
 (``register_sharding``): batch and heads are shardable, Sq, Sk and D are
 replicated, lse follows q's (B, H).  DTensor then runs each operator on
 its local shards, so only plain local tensors ever reach the kernels'
-wrappers (which raise on a DTensor).  The rules are registered when this
-module is imported (a registry entry: no process group is touched).
+wrappers (which raise on a DTensor): on a model axis, each rank's H/model
+heads.  q, k and v must arrive in one layout: where they do not (GQA's KV
+heads that the model axis does not divide, left whole while q's heads
+split), the rule raises instead of letting DTensor gather heads inside
+attention.  The rules are registered when this module is imported (a
+registry entry: no process group is touched).
 """
 
 from __future__ import annotations
@@ -105,13 +109,28 @@ def _register_dtensor_rules() -> None:
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
     def _fwd_rule(q, k, v, causal):
+        _same_layout(q, k, v)
         return [([big, stats], [big, big, big, None]) for big, stats in options]
 
     @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
     def _bwd_rule(q, k, v, out, lse, do, dlse, causal):
+        _same_layout(q, k, v)
         return [([big, big, big],
                  [big, big, big, big, stats, big, None if dlse is None else stats, None])
                 for big, stats in options]
+
+
+def _same_layout(q, k, v) -> None:
+    """q, k and v must arrive in one layout: DTensor would otherwise gather
+    heads inside attention without a word (q's heads split over the model
+    axis while GQA's KV heads, which it does not divide, stay whole)."""
+    layouts = [tuple(t.placements) for t in (q, k, v)]
+    if layouts[1:] != layouts[:1] * 2:
+        from repro_torch.core.lowering.base import not_ported
+
+        raise not_ported(
+            f"flash attention on q, k, v in differing layouts {layouts} (KV heads the "
+            "model axis does not divide)", "Multi-device")
 
 
 if torch.distributed.is_available():

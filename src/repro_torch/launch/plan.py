@@ -6,9 +6,10 @@ The logic is the reference's.  What differs: the per-device memory
 ``plan_unit_segments``, ``plan_with_microbatching`` and
 ``prewarm_unit_plans``; ``None`` reads the CUDA card's total memory
 (``launch.mesh.device_hbm_bytes``), and tests pin the reference's 16 GiB.
-The measured cost model (``REPRO_MEASURED_COSTS``) and the static plan
-verifier (``REPRO_VERIFY_PLANS``) raise ``NotImplementedError`` until their
-ROADMAP items land.
+The measured cost model (``REPRO_MEASURED_COSTS``: ``_dp_chain_graph``
+prices the chain from a profile of the device) and the static plan
+verifier (``REPRO_VERIFY_PLANS``: ``_maybe_verify`` checks each plan) run
+as the reference's do.
 
 One instance of the unified pipeline (carrier → Planner → lowering): the
 carrier here is the unit-granularity *chain graph* of the scan-over-units

@@ -29,7 +29,8 @@ slice of the global batch ``--batch`` (the pipeline's ``num_hosts`` /
 sizes, and the Trainer steps on the mesh (``Trainer(mesh=)``), as the
 reference launcher does.  Rank 0 logs, and prints a last ``summary:`` line
 (JSON: losses, step seconds, peak device bytes, the first step's
-collectives, the kernels' launches in this process).  With ``--ckpt-dir``
+collectives in all and by mesh axis, the kernels' launches in this
+process).  With ``--ckpt-dir``
 rank 0 writes the checkpoints and every rank restores from them.  A group
 the caller started is joined and left running; one the launcher started
 is destroyed at the end.  Without ``torchrun`` the launcher runs as before.
@@ -167,7 +168,8 @@ def main(argv=None):
 
         say("summary: " + json.dumps({
             "world": world, "losses": out["losses"], "step_seconds": out["step_seconds"],
-            "peak_bytes": peak, "collectives": tr.comm_stats, "launches": dict(LAUNCHES)}))
+            "peak_bytes": peak, "collectives": tr.comm_stats,
+            "collectives_by_axis": tr.comm_by_axis, "launches": dict(LAUNCHES)}))
         if owned:
             dist.destroy_process_group()
     return out

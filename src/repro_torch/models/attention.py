@@ -21,7 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.ops import flash_attention
-from .layers import apply_rope, checkpointed
+from repro_torch.parallel.sharding import shard
+from .layers import apply_rope, checkpointed, gather_sequence
 
 
 def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
@@ -29,6 +30,7 @@ def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
              rope_theta: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     dt = x.dtype
+    x = gather_sequence(x)
     q = x @ p["wq"].to(dt)
     k = x @ p["wk"].to(dt)
     v = x @ p["wv"].to(dt)
@@ -42,6 +44,9 @@ def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -147,7 +152,9 @@ def attention(
                            q, k, v)
     else:
         ctx = flash_attention(q, k, v, causal=causal)
-    return ctx.reshape(B, S, n_heads * d_head) @ p["wo"].to(x.dtype)
+    ctx = shard(ctx, "batch", None, "heads", None)
+    out = ctx.reshape(B, S, n_heads * d_head) @ p["wo"].to(x.dtype)
+    return shard(out, "batch", None, "model")
 
 
 def decode_attention(

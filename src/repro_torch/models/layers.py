@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.fx_graph import tracing
+from repro_torch.parallel.sharding import model_parallel, shard
+from repro_torch.parallel.vocab import embed_rows, pick
 
 
 def checkpointed(fn, *args):
@@ -63,39 +65,76 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def gather_sequence(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) activations whole along S where a matmul flattens them or
+    their cotangent: Megatron's all-gather of the sequence-parallel
+    residual before a matmul, and an MLP's partial sums made whole after
+    its down projection (as the reference constrains the attention's
+    output), so that the residual's sequence-sharded cotangent is gathered
+    before that projection's backward flattens it.  GSPMD and newer
+    DTensors redistribute implicitly; older DTensors refuse to flatten a
+    sharded S, so the port constrains it (identity off a model axis)."""
+    return shard(x, "batch", None, "model")
+
+
 def swiglu(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
            x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
+    x = gather_sequence(x)
     g = x @ w_gate.to(dt)
     u = x @ w_up.to(dt)
-    h = F.silu(g.float()).to(dt) * u
-    return h @ w_down.to(dt)
+    h = shard(F.silu(g.float()).to(dt) * u, "batch", None, "ffn")
+    return gather_sequence(h @ w_down.to(dt))
 
 
 def gelu_mlp(w_up: torch.Tensor, w_down: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Up projection, GELU in f32 with the tanh approximation
     (``jax.nn.gelu``'s default, not torch's exact one), down projection."""
     dt = x.dtype
-    h = F.gelu((x @ w_up.to(dt)).float(), approximate="tanh").to(dt)
-    return h @ w_down.to(dt)
+    h = F.gelu((gather_sequence(x) @ w_up.to(dt)).float(), approximate="tanh").to(dt)
+    h = shard(h, "batch", None, "ffn")
+    return gather_sequence(h @ w_down.to(dt))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.embedding(tokens, table.to(dtype))
+    """Rows of ``table`` (V, d).  On a model-parallel mesh each vocab shard
+    looks up the tokens of its slice and the shards' rows are summed
+    (``parallel.vocab.embed_rows``): DTensor's own lookup on a
+    vocab-sharded table leaves a masked partial value whose mask lives on
+    a shared placement object, which a plan that recomputes the lookup or
+    its reader corrupts."""
+    table = table.to(dtype)
+    if not model_parallel(tokens):
+        return F.embedding(tokens, table)
+    return embed_rows(table, tokens)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(..., d) × (V, d) → f32 logits (..., V)."""
-    return (x @ table.to(x.dtype).t()).float()
+    return shard((gather_sequence(x) @ table.to(x.dtype).t()).float(), "batch", None, "vocab")
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy; logits (..., V) f32, labels (...) int.
 
-    The reference picks the gold logit with a one-hot contraction (for a
-    vocab-sharded GSPMD layout); on one card a gather selects the same value.
-    """
+    The reference picks the gold logit with a one-hot contraction, so that
+    GSPMD reduces vocab-sharded logits shard-locally; on one card a gather
+    selects the same value.  On a model-parallel mesh the port computes
+    the log-partition on the vocab shards: a row max (all-reduced with
+    max) and the sum of exponentials (all-reduced with sum), and each
+    shard picks the gold logits of its slice (``parallel.vocab.pick``,
+    summed over the shards), so no rank holds the full (B, S, V) logits
+    (``torch.logsumexp`` on DTensor would all-gather them first; a gather
+    along the shards leaves a masked partial value that DTensor can reduce
+    only once, which a plan that recomputes its reader cannot honour)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if not model_parallel(logits):
+        logz = torch.logsumexp(logits, dim=-1)
+        return (logz - logits.gather(-1, labels.long()[..., None])[..., 0]).mean()
+    # the shards' maxima and partial sums all-reduced over the vocab
+    # (DTensor would reduce-scatter them over the batch instead)
+    top = shard(logits.detach().amax(dim=-1, keepdim=True), "batch", None, None)
+    total = shard(torch.exp(logits - top).sum(dim=-1), "batch", None)
+    logz = torch.log(total) + top[..., 0]
+    gold = shard(pick(logits, labels.long()), "batch", None)
     return (logz - gold).mean()

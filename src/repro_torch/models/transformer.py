@@ -46,6 +46,7 @@ from repro_torch.configs.base import ModelConfig, SSMConfig
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from repro_torch.parallel.sharding import shard
 from .layers import checkpointed, embed, init_normal, rmsnorm, softmax_xent, swiglu, unembed
 
 
@@ -338,7 +339,9 @@ class Unit(nn.Module):
                 shared: Optional[SharedAttn] = None) -> torch.Tensor:
         for name in self.steps:
             h = shared(h, h0, positions) if name is None else getattr(self, name)(h, positions)
-        return h
+        # the unit boundary, the plan's cache candidate: sequence-parallel
+        # (S/model per device), as Megatron's SP keeps the residual stream
+        return shard(h, "batch", "seq_act", None)
 
     def decode(self, h: torch.Tensor, caches: Dict[str, Dict[str, torch.Tensor]],
                position: torch.Tensor, h0: Optional[torch.Tensor] = None,
@@ -365,7 +368,7 @@ class LM(nn.Module):
         self.cfg = cfg
         self.pattern, self.n_units = unit_pattern(cfg)
         device = torch.device(device)
-        if generator is None:
+        if generator is None and device.type != "meta":  # meta: shapes only
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(device=device, generator=generator)
         self.embedding = _params(
@@ -391,8 +394,10 @@ class LM(nn.Module):
         embeddings (F = 0 without it)."""
         dt = self.cfg.activation_dtype
         h = embed(self.embedding.embed, tokens, dt)
+        only_dense_on_model_axis(h, self.pattern)
         if extra_embeds is not None:
             h = torch.cat([extra_embeds.to(dt), h], dim=1)
+        h = shard(h, "batch", None, "model")
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         h0 = h  # the hybrid's skip input, read by every unit
         h = scan_over_segments(
@@ -467,7 +472,8 @@ class LM(nn.Module):
         goes into the caches in place; the returned caches are the given
         ones.
         """
-        h = embed(self.embedding.embed, tokens, self.cfg.activation_dtype)
+        h = shard(embed(self.embedding.embed, tokens, self.cfg.activation_dtype),
+                  "batch", None, "model")
         h0 = h
         unit_caches = caches["units"] if self.has_shared else caches
         for u, unit in enumerate(self.layers):
@@ -477,6 +483,19 @@ class LM(nn.Module):
                       if self.has_shared else None)
             h = unit.decode(h, views, position, h0, self.shared_attn, shared)
         return self._logits(h), caches
+
+
+def only_dense_on_model_axis(x: torch.Tensor, kinds: Sequence[str]) -> None:
+    """The dense ``attn_mlp`` family alone runs on a model axis: the other
+    families' constraints (expert parallelism, the SSM and xLSTM state
+    layouts, whisper's) come later."""
+    from repro_torch.parallel.sharding import model_parallel
+
+    if model_parallel(x) and any(k != "attn_mlp" for k in kinds):
+        from repro_torch.core.lowering.base import not_ported
+
+        raise not_ported(f"the {'/'.join(sorted(set(kinds)))} family on a model axis",
+                         "Multi-device")
 
 
 def default_segments(n_units: int) -> Tuple[int, ...]:

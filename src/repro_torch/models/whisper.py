@@ -35,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention
 from . import attention as attn
 from .layers import embed, gelu_mlp, init_normal, layernorm, softmax_xent, unembed
-from .transformer import Attention, _params, scan_over_segments
+from .transformer import Attention, _params, only_dense_on_model_axis, scan_over_segments
 
 MAX_DEC_POS = 65_536
 
@@ -132,7 +132,7 @@ class WhisperModel(nn.Module):
         self.cfg = cfg
         self.n_units = cfg.n_layers  # layers on each side
         device = torch.device(device)
-        if generator is None:
+        if generator is None and device.type != "meta":  # meta: shapes only
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(device=device, generator=generator)
         d = cfg.d_model
@@ -156,6 +156,7 @@ class WhisperModel(nn.Module):
         dt = self.cfg.activation_dtype
         T = frames.shape[1]
         h = frames.to(dt) + self.enc_pos[:T].to(dt)[None]
+        only_dense_on_model_axis(h, ["whisper"])
         positions = torch.arange(T, device=h.device)[None, :]
         h = scan_over_segments(h, self.encoder, lambda layer, x: layer(x, positions),
                                segment_sizes, segment_remat)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,8 +59,36 @@ def init(params: Sequence[torch.Tensor]) -> AdamWState:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """√(Σ‖t‖²) in f32, as a 0-dim tensor on the tensors' device."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+    """√(Σ‖t‖²) in f32, as a 0-dim plain tensor on the tensors' device.
+
+    A DTensor contributes its local squares, summed over the ranks of
+    every mesh dim that shards it: the leaves sharded over the same mesh
+    dims share one all-reduce of their local sums per dim.  Replicated
+    leaves (plain tensors too) send nothing, so without sharded leaves the
+    norm is the local one, bit for bit."""
+    from torch.distributed.tensor import DTensor
+
+    terms: List[torch.Tensor] = []
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    mesh = None
+    for i, t in enumerate(tensors):
+        local = t.to_local() if isinstance(t, DTensor) else t
+        terms.append(local.float().square().sum())
+        if isinstance(t, DTensor):
+            dims = tuple(d for d, p in enumerate(t.placements) if not p.is_replicate())
+            if dims:
+                groups.setdefault(dims, []).append(i)
+                mesh = t.device_mesh
+    if groups:
+        import torch.distributed._functional_collectives as funcol
+
+        for dims, idx in groups.items():
+            part = torch.stack([terms[i] for i in idx])
+            for d in dims:
+                part = funcol.all_reduce(part, "sum", (mesh, d))
+            for j, i in enumerate(idx):
+                terms[i] = part[j]
+    return torch.stack(terms).sum().sqrt()
 
 
 @torch.no_grad()

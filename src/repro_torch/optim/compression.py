@@ -8,7 +8,11 @@ reference's are plain jnp.  ``straight_through_roundtrip`` is the value a
 gradient.  ``quantize_roundtrip_with_feedback`` / ``init_error_feedback``
 are the reference's error-feedback round-trip of the gradients, on lists
 or dicts of tensors; ``Trainer(compress_grads=True)`` runs its one-tensor
-step, ``roundtrip_leaf_with_feedback``, gradient by gradient.  The
+step, ``roundtrip_leaf_with_feedback``, gradient by gradient, on whole
+(replicated) gradients: the reference quantizes the global array in
+256-element blocks, which a rank's shard of a sharded gradient does not
+line up with, so a ``compress_grads`` Trainer on sharded parameters (a
+model axis, FSDP) raises, naming ROADMAP.md 'Multi-device'.  The
 reference's ``hierarchical_psum`` (a ``shard_map`` collective, which
 nothing in the reference calls) waits for ROADMAP.md module queue, item
 'Multi-device'.

@@ -23,8 +23,10 @@ an axis name, or a tuple of axis names), the entries of the reference's
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import operator
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 #: A partition spec: one entry per dim — None, an axis name, or a tuple.
 Spec = Tuple[Any, ...]
@@ -312,19 +314,74 @@ def normalize_spec(sharding: Any, mesh: Any = None, ndim: Optional[int] = None) 
         f"{type(sharding).__name__}")
 
 
+#: Mesh axes that only split the batch.  A sharding constraint on a mesh
+#: whose other axes all have size 1 agrees with what the batch's own
+#: sharding propagates, so ``shard`` leaves the tensor alone there.
+BATCH_AXES = ("pod", "data")
+
+#: Axis sizes of the mesh a ``core.fx_graph`` trace prices ({} otherwise).
+_TRACE_MESH: contextvars.ContextVar[Dict[str, int]] = contextvars.ContextVar(
+    "trace_mesh", default={})
+
+
+@contextlib.contextmanager
+def tracing_on(mesh: Any) -> Iterator[None]:
+    """Within this block ``shard`` records its constraint in the traced
+    graph when ``mesh`` (a ``DeviceMesh`` or an ``{axis: size}`` dict)
+    splits more than the batch."""
+    token = _TRACE_MESH.set(axis_sizes_of(mesh))
+    try:
+        yield
+    finally:
+        _TRACE_MESH.reset(token)
+
+
+def model_parallel(x: Any) -> bool:
+    """Whether ``x`` lives on (or is traced for) a mesh that splits more
+    than the batch, the model axis of tensor parallelism: an axis beyond
+    ``BATCH_AXES`` larger than 1 on a DTensor's mesh, else on the mesh
+    being traced."""
+    mesh = getattr(x, "device_mesh", None)
+    sizes = axis_sizes_of(mesh) if mesh is not None else _TRACE_MESH.get()
+    return any(n not in BATCH_AXES and k > 1 for n, k in sizes.items())
+
+
 def shard(x: Any, *logical: Optional[str]) -> Any:
-    """The reference's sharding constraint by logical axis names: a DTensor
-    is redistributed onto the resolved spec on its own mesh; anything else
-    (no concrete mesh) passes through unchanged."""
+    """The reference's sharding constraint by logical axis names.
+
+    On a mesh that splits more than the batch (a DTensor's, or the mesh a
+    ``core.fx_graph`` trace prices) it is ``constraint.constrain``: in a
+    trace the custom op ``repro_torch::shard``, one node priced at the
+    resolved spec's per-device bytes; on a DTensor a redistribution onto
+    that spec (its backward constrains the cotangent alike, as the
+    transpose of ``with_sharding_constraint`` does).  On a data-only mesh
+    a DTensor is redistributed where the spec differs on an axis larger
+    than 1 (the models' constraints never do: the batch's own sharding
+    gives their layout there, and the trace holds no node for them).  A
+    plain tensor off any traced mesh passes through unchanged."""
+    if model_parallel(x):
+        from .constraint import constrain
+
+        return constrain(x, encode_logical(logical))
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
     want = spec_to_placements(resolve(logical, mesh, shape=tuple(x.shape)), mesh)
-    if list(x.placements) == want:
+    if all(p == w or k == 1 for p, w, k in zip(x.placements, want, mesh.shape)):
         return x
     return x.redistribute(mesh, want)
+
+
+def encode_logical(logical: Sequence[Optional[str]]) -> str:
+    """Logical names as the constraint op's string argument: one comma
+    separated entry per dim, empty for None."""
+    return ",".join(name or "" for name in logical)
+
+
+def decode_logical(text: str) -> Tuple[Optional[str], ...]:
+    return tuple(name or None for name in text.split(","))
 
 
 # ---------------------------------------------------------------------------
@@ -441,23 +498,41 @@ def fsdp_extend(spec: Spec, shape: Tuple[int, ...], axis_sizes: Dict[str, int],
     return tuple(entries)
 
 
+def spec_tree(params: Any, axis_sizes: Dict[str, int], fsdp: bool = False,
+              fsdp_axes: Tuple[str, ...] = ("data",),
+              stacked_prefixes: Sequence[str] = ("layers",)) -> Any:
+    """A spec per leaf of a parameter tree under ``axis_sizes``: the rule of
+    ``param_spec``, the divisibility guard and (when asked) the FSDP
+    extension, as the reference's ``named_sharding_tree`` lays them out."""
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+        p = drop_indivisible(_leaf_param_spec(path, leaf, stacked_prefixes), shape,
+                             axis_sizes)
+        if fsdp:
+            for ax in fsdp_axes:
+                p = fsdp_extend(p, shape, axis_sizes, fsdp_axis=ax)
+        return p
+
+    return _map_tree(params, one)
+
+
 def named_sharding_tree(params: Any, mesh: Any, fsdp: bool = False,
                         fsdp_axes: Tuple[str, ...] = ("data",), **kw) -> Any:
     """DTensor placements (a list, one per mesh dim) for every leaf of a
     parameter tree on ``mesh``, with the divisibility guard (and the FSDP
     extension when asked): the reference's ``NamedSharding`` tree."""
-    sizes = axis_sizes_of(mesh)
-    prefixes = kw.get("stacked_prefixes", ("layers",))
+    specs = spec_tree(params, axis_sizes_of(mesh), fsdp, fsdp_axes,
+                      kw.get("stacked_prefixes", ("layers",)))
+    return map_specs(specs, lambda spec: spec_to_placements(spec, mesh))
 
-    def to_placements(path, leaf):
-        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
-        p = drop_indivisible(_leaf_param_spec(path, leaf, prefixes), shape, sizes)
-        if fsdp:
-            for ax in fsdp_axes:
-                p = fsdp_extend(p, shape, sizes, fsdp_axis=ax)
-        return spec_to_placements(p, mesh)
 
-    return _map_tree(params, to_placements)
+def map_specs(tree: Any, fn) -> Any:
+    """``fn`` on every spec of a (nested dict) tree of specs: unlike a
+    parameter tree's, a spec's own tuple is a leaf."""
+    if isinstance(tree, dict):
+        return {k: map_specs(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def sharded_aval_bytes(val: Any, spec: Spec, axis_sizes: Dict[str, int]) -> int:
@@ -595,8 +670,14 @@ def _rule(n: Any, name: str, spec_of, env, axis_sizes) -> Optional[Tuple[Spec, .
         out = tuple(None if i in axes else e for i, e in enumerate(ent)
                     if keep or i not in axes)
         return (out,)
-    from ..core.prims import FLASH_OP
+    from ..core.prims import FLASH_OP, SHARD_OP, VOCAB_EMBED_OP, VOCAB_PICK_OP
 
+    if name == SHARD_OP:  # the constraint's own spec
+        return (resolve_spec(decode_logical(args[1]), axis_sizes, shape=_shape(n)),)
+    if name == VOCAB_EMBED_OP:  # indices' dims + D, a partial sum over the vocab shards
+        return (_spec_entries(spec_of(args[1]), len(_shape(args[1]))) + (None,),)
+    if name == VOCAB_PICK_OP:  # the labels' dims
+        return (_spec_entries(spec_of(args[1]), len(_shape(args[1]))),)
     if name == FLASH_OP:  # q (B, Sq, H, D): batch and heads shard, Sq and D not
         ent = _spec_entries(spec_of(args[0]), 4)
         return ((ent[0], None, ent[2], None), (ent[0], ent[2], None))
@@ -678,9 +759,11 @@ def place(t: Any, mesh: Any, spec: Spec) -> Any:
 def _reshape_spec(in_shape: Tuple[int, ...], out_shape: Tuple[int, ...], ent: Tuple,
                   axis_sizes: Dict[str, int]) -> Spec:
     """A reshape's output spec: dims are matched in groups of equal
-    products; a group keeps the entry of its leading input dim (the others
-    replicated) on its leading output dim longer than 1, when the shard
-    count divides both.  Anything else in a group is replicated."""
+    products; a group keeps the entry of its leading input dim on its
+    leading output dim longer than 1, when the shard count divides both.
+    Anything else in a group is replicated: DTensor gathers another dim's
+    shards before it merges them (the sequence-parallel residual's
+    ``S`` shards when (B, S, D) flattens for a matmul)."""
     out: List[Any] = [None] * len(out_shape)
     i = j = 0
     while i < len(in_shape) and j < len(out_shape):
@@ -701,8 +784,7 @@ def _reshape_spec(in_shape: Tuple[int, ...], out_shape: Tuple[int, ...], ent: Tu
         dest = next((d for d in gj if out_shape[d] > 1), gj[0])
         e = ent[lead]
         k = _entry_shards(e, axis_sizes)
-        if (e is not None and all(ent[d] is None for d in gi if d != lead)
-                and in_shape[lead] % k == 0 and out_shape[dest] % k == 0):
+        if e is not None and in_shape[lead] % k == 0 and out_shape[dest] % k == 0:
             out[dest] = e
         i += 1
         j += 1

@@ -29,20 +29,29 @@ Ported responsibilities:
 * **gradient compression** — ``compress_grads`` runs the reference's int8
   error-feedback round-trip (``optim.compression``) on the gradients'
   local values before the update;
-* **data-parallel steps** — ``Trainer(mesh=DeviceMesh)``: the model's
-  parameters, the AdamW moments and the error feedback become DTensors on
-  the mesh, replicated (sharded parameters, FSDP, wait: ROADMAP.md
-  'Multi-device'), each batch is ``Shard(0)`` over the data axes, and the
-  step (plain autograd or the planned twin of ``plan_function(mesh=,
+* **sharded steps** — ``Trainer(mesh=DeviceMesh, in_shardings=)``: the
+  model's parameters, the AdamW moments and the error feedback become
+  DTensors on the mesh, laid out by ``in_shardings = (param_shardings,
+  batch_shardings)`` as the reference's are: ``param_shardings`` maps a
+  parameter name to a spec or DTensor placements
+  (``launch.specs.param_shardings``: tensor parallelism over ``model``,
+  FSDP over ``data`` where ``fsdp_extend`` asks), None replicates every
+  parameter; ``batch_shardings`` maps a batch key to its spec, None
+  shards each batch tensor's leading dim over the data axes.  The step
+  (plain autograd or the planned twin of ``plan_function(mesh=,
   in_shardings=)``, which budgets per-device bytes) returns every gradient
-  in its parameter's placements:
-  a replicated parameter's ``Partial`` gradient is all-reduced there.
-  The update runs on the local tensors.  A model axis larger than 1
-  raises (ROADMAP.md 'Multi-device');
-* **elastic re-mesh** — ``remesh(new_mesh)`` moves the live parameters,
-  moments and error feedback onto the new mesh (or off any mesh) and
-  rebuilds the step; the planned step re-plans under the new per-device
-  bytes (a new digest).
+  in its parameter's placements (a replicated parameter's ``Partial``
+  gradient is all-reduced there, an FSDP shard's reduce-scattered); DTensor
+  gathers an FSDP-sharded weight where it is used.  The clip's norm is the
+  global one (``adamw.global_norm``); the update runs on the local
+  tensors.  Checkpoints hold full arrays: each sharded leaf is gathered by
+  every rank, one at a time, and written by rank 0; a restore hands each
+  rank its shard;
+* **elastic re-mesh** — ``remesh(new_mesh, shardings=)`` moves the live
+  parameters, moments and error feedback onto the new mesh in the given
+  parameter shardings (None: replicated), or off any mesh, and rebuilds
+  the step; the planned step re-plans under the new per-device bytes (a
+  new digest).
 
 The reference jits a step that donates a private copy of the params; the
 port trains the given module in place (a copy would double 11 GB of f32
@@ -126,11 +135,25 @@ def functional_loss(loss_fn, model: nn.Module):
     return fn, params
 
 
-def _onto(t: torch.Tensor, mesh: Any) -> torch.Tensor:
-    """``t``'s value (replicated: each rank holds all of it) replicated on
-    ``mesh`` without sending anything, or plain without a mesh."""
-    full = _local(t.detach())
-    return full if mesh is None else sh.place(full, mesh, ())
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """The whole value of ``t``: a replicated DTensor's local tensor, a
+    sharded one gathered (a collective: every rank calls it)."""
+    t = t.detach()
+    if isinstance(t, DTensor):
+        return t.to_local() if all(p.is_replicate() for p in t.placements) else t.full_tensor()
+    return t
+
+
+def _onto(t: torch.Tensor, mesh: Any, spec: sh.Spec = ()) -> torch.Tensor:
+    """``t``'s whole value laid out on ``mesh`` in ``spec`` (each rank keeps
+    its own slice of its copy: nothing is sent beyond gathering a sharded
+    ``t``), or plain without a mesh."""
+    full = _full(t)
+    return full if mesh is None else sh.place(full, mesh, spec)
+
+
+def _sharded(t: torch.Tensor) -> bool:
+    return isinstance(t, DTensor) and not all(p.is_replicate() for p in t.placements)
 
 
 class Trainer:
@@ -141,6 +164,7 @@ class Trainer:
         cfg: TrainConfig,
         device="cuda",
         mesh: Any = None,
+        in_shardings: Any = None,
     ):
         self.cfg = cfg
         self.loss_fn = loss_fn
@@ -157,8 +181,11 @@ class Trainer:
         self.opt_state = adamw.init(self.params)
         self.err_fb = init_error_feedback(self.params) if cfg.compress_grads else None
         self.mesh = None
+        param_shardings, self.batch_shardings = in_shardings or (None, None)
         if mesh is not None:
-            self._set_mesh(mesh)
+            self._set_mesh(mesh, param_shardings)
+        elif in_shardings is not None:
+            raise ValueError("in_shardings= needs mesh=")
         self.planned = None
         self._build_step()
         self.step = 0
@@ -166,36 +193,52 @@ class Trainer:
         self.straggler_steps = 0
         self._ewma: Optional[float] = None
         self.on_straggler: Optional[Callable[[int, float, float], None]] = None
-        # in a process group only rank 0 writes: the ranks' replicated
-        # states are one state, and writers sharing a directory would race
+        # in a process group only rank 0 writes: the ranks' states are one
+        # state, and writers sharing a directory would race
         writes = not dist.is_initialized() or dist.get_rank() == 0
         self._ckpt = (AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.ckpt_keep)
                       if cfg.ckpt_dir and writes else None)
         self._saved_step: Optional[int] = None
         #: on a mesh, the collectives of the first step (``census.
-        #: CountCollectives.stats``: calls, payload and ring wire bytes per op)
+        #: CountCollectives.stats``: calls, payload and ring wire bytes per
+        #: op), and the same per mesh axis (``{"data": {op: ...}, "model": ...}``)
         self.comm_stats: Optional[Dict[str, Dict[str, float]]] = None
+        self.comm_by_axis: Optional[Dict[str, Dict[str, Dict[str, float]]]] = None
 
     # ------------------------------------------------------------- the mesh
 
-    def _set_mesh(self, mesh: Any) -> None:
-        """Lay the parameters, moments and error feedback out on ``mesh``,
-        replicated (None: back to plain tensors)."""
+    def _set_mesh(self, mesh: Any, param_shardings: Any = None) -> None:
+        """Lay the parameters, moments and error feedback out on ``mesh`` in
+        ``param_shardings`` (a name → spec or placements dict; None:
+        replicated), or back to plain tensors (``mesh=None``)."""
+        specs = [()] * len(self.params)
         if mesh is not None:
             check_executable_mesh(mesh)
             if not sh.is_device_mesh(mesh):
                 raise ValueError("Trainer(mesh=) runs on a torch.distributed DeviceMesh; "
                                  "an {axis: size} dict only prices plans (plan_function)")
-        self._replace_params([_onto(p, mesh) for p in self.params])
+            if param_shardings is not None:
+                specs = [sh.normalize_spec(param_shardings.get(n), mesh, p.dim())
+                         for n, p in zip(self.names, self.params)]
+            if self.err_fb is not None and any(any(e is not None for e in s) for s in specs):
+                from repro_torch.core.lowering.base import not_ported
+
+                raise not_ported("compress_grads on sharded parameters (the codec's blocks "
+                                 "are the global gradient's)", "Multi-device")
+        self._replace_params([_onto(p, mesh, s) for p, s in zip(self.params, specs)])
         st = self.opt_state
-        st.mu = [_onto(m, mesh) for m in st.mu]
-        st.nu = [_onto(v, mesh) for v in st.nu]
+        st.mu = [_onto(m, mesh, s) for m, s in zip(st.mu, specs)]
+        st.nu = [_onto(v, mesh, s) for v, s in zip(st.nu, specs)]
         if self.err_fb is not None:
-            self.err_fb = [_onto(e, mesh) for e in self.err_fb]
+            self.err_fb = [_onto(e, mesh, s) for e, s in zip(self.err_fb, specs)]
         self.mesh = mesh
 
-    def _batch_spec(self, t: torch.Tensor) -> sh.Spec:
-        """``Shard(0)`` over the data axes (the logical ``"batch"`` axis)."""
+    def _batch_spec(self, key: str, t: torch.Tensor) -> sh.Spec:
+        """The batch tensor's spec from ``batch_shardings``, by default
+        ``Shard(0)`` over the data axes (the logical ``"batch"`` axis)."""
+        given = (self.batch_shardings or {}).get(key)
+        if given is not None:
+            return sh.normalize_spec(given, self.mesh, t.dim())
         return tuple(sh.resolve(("batch",) + (None,) * (t.dim() - 1), self.mesh, shape=None))
 
     def _replace_params(self, tensors) -> None:
@@ -221,14 +264,15 @@ class Trainer:
         kw = {} if self.mesh is None else dict(mesh=self.mesh, in_shardings=(None, None))
         self.planned = plan_function(step_loss, self.cfg.plan_budget, **kw)
 
-    def remesh(self, new_mesh: Any) -> None:
+    def remesh(self, new_mesh: Any, shardings: Any = None) -> None:
         """Elastic re-mesh: move the live parameters, AdamW moments and
-        error feedback onto ``new_mesh``, replicated, or off any mesh
-        (``new_mesh=None``), and rebuild the step.  A planned step re-plans
-        under the new per-device bytes, so its plan-cache digest is new."""
-        self._set_mesh(new_mesh)
+        error feedback onto ``new_mesh`` in the parameter ``shardings``
+        (None: replicated), or off any mesh (``new_mesh=None``), and rebuild
+        the step.  A planned step re-plans under the new per-device bytes,
+        so its plan-cache digest is new."""
+        self._set_mesh(new_mesh, shardings)
         self._build_step()
-        self.comm_stats = None
+        self.comm_stats = self.comm_by_axis = None
 
     # ------------------------------------------------------------- step fn
 
@@ -241,7 +285,7 @@ class Trainer:
             return batch
         out = {}
         for k, t in batch.items():
-            want = sh.spec_to_placements(self._batch_spec(t), self.mesh)
+            want = sh.spec_to_placements(self._batch_spec(k, t), self.mesh)
             if isinstance(t, DTensor):
                 out[k] = t if list(t.placements) == want else t.redistribute(self.mesh, want)
             else:
@@ -258,6 +302,7 @@ class Trainer:
             with CountCollectives() as counted:
                 out = self._step(batch)
             self.comm_stats = counted.stats
+            self.comm_by_axis = counted.by_axis(self.mesh)
             return out
         return self._step(batch)
 
@@ -272,6 +317,9 @@ class Trainer:
             else:
                 loss, by_key = self.planned(self._by_key, batch)
                 grads = [by_key[k] for k in self._by_key]
+        # the global norm: each leaf's local squares reduced over the mesh
+        # dims that shard it (a replicated leaf's local value is whole)
+        gnorm = adamw.global_norm(grads)
         grads = [_local(g) for g in grads]
         if self.err_fb is not None:
             # leaf by leaf, so the codec holds one leaf's temporaries, not a
@@ -281,7 +329,7 @@ class Trainer:
                 with torch.no_grad():
                     _local(e).copy_(new_err)
                 del new_err
-        gnorm = adamw.global_norm(grads)  # replicated: the local grads are whole
+            gnorm = adamw.global_norm(grads)
         loss_f, gnorm_f = float(_local(loss)), float(gnorm)
         # NaN guard: skip the update when loss/grad-norm is non-finite.
         ok = math.isfinite(loss_f) and math.isfinite(gnorm_f)
@@ -301,7 +349,7 @@ class Trainer:
     def state(self) -> Dict[str, Any]:
         """The checkpointed state, in the reference's tree layout:
         ``{"params": ..., "opt": {"step", "mu", "nu"}}``, keyed by parameter
-        name (on a mesh, the local values: replicated, so whole)."""
+        name (on a mesh, the local values)."""
         st = self.opt_state
 
         def named(ts):
@@ -309,6 +357,27 @@ class Trainer:
 
         return {"params": named(self.params),
                 "opt": {"step": st.step, "mu": named(st.mu), "nu": named(st.nu)}}
+
+    def _full_state(self) -> Optional[Dict[str, Any]]:
+        """The state as full arrays on the host, for the checkpoint: each
+        sharded leaf is gathered (a collective, so every rank gathers, on
+        this thread, leaf by leaf) and kept by the writing rank only; the
+        others get None."""
+        writes = self._ckpt is not None
+        st = self.opt_state
+
+        def named(ts):
+            out = {}
+            for n, t in zip(self.names, ts):
+                full = _full(t)
+                if writes:
+                    out[n] = full.to("cpu", copy=True)
+                del full
+            return out
+
+        tree = {"params": named(self.params),
+                "opt": {"step": st.step, "mu": named(st.mu), "nu": named(st.nu)}}
+        return tree if writes else None
 
     def maybe_restore(self) -> bool:
         """Resume from the latest committed checkpoint, if any: parameters
@@ -319,12 +388,18 @@ class Trainer:
         s = latest_step(self.cfg.ckpt_dir)
         if s is None:
             return False
-        like = self.state()
-        got = restore(self.cfg.ckpt_dir, s, like)
+        st = self.opt_state
+        live = {"params": dict(zip(self.names, self.params)),
+                "opt": {"step": st.step, "mu": dict(zip(self.names, st.mu)),
+                        "nu": dict(zip(self.names, st.nu))}}
+        got = restore(self.cfg.ckpt_dir, s, live)
         with torch.no_grad():
-            for dst, src in zip(pytree.tree_leaves(like), pytree.tree_leaves(got)):
+            for dst, src in zip(pytree.tree_leaves(live), pytree.tree_leaves(got)):
+                if isinstance(dst, DTensor):  # this rank's shard of the full array
+                    src = sh.place(src.to(dst.device), dst.device_mesh,
+                                   sh.normalize_spec(dst))
                 if isinstance(dst, torch.Tensor):
-                    dst.copy_(src)
+                    _local(dst).copy_(_local(src))
         self.opt_state.step = int(got["opt"]["step"])
         self.step = s
         return True
@@ -337,8 +412,13 @@ class Trainer:
         once the write has committed, on every rank."""
         if not self.cfg.ckpt_dir:
             return
-        if self._ckpt and self._saved_step != self.step:
-            self._ckpt.save_async(self.step, self.state())
+        if self._saved_step != self.step:
+            if any(_sharded(t) for t in self.params):
+                tree = self._full_state()  # every rank gathers
+                if tree is not None:
+                    self._ckpt.save_async(self.step, tree)
+            elif self._ckpt:
+                self._ckpt.save_async(self.step, self.state())
         self._saved_step = self.step
         if wait:
             self._sync_checkpoints()

@@ -219,11 +219,14 @@ def test_pick_backend_takes_gloo_only_for_ranks_sharing_a_nodes_cards(
 
 
 def test_trainer_raises_for_what_is_not_ported_on_a_mesh():
-    """A model axis larger than 1 is priced but not run; a dict mesh cannot
-    run a step."""
+    """A mesh axis no twin runs over (a pipeline's stages) raises; a dict
+    mesh, the model axis included, cannot run a step."""
     _, pcfg, _, np_tree = _small()
     cfg = TrainConfig(total_steps=1, log_every=0)
-    with pytest.raises(NotImplementedError, match="model-axis execution.*Multi-device"):
+    with pytest.raises(NotImplementedError, match="mesh axis 'stage'.*Multi-device"):
+        Trainer(lambda m, b: m.loss(b), _port_model(pcfg, np_tree), cfg, device="cpu",
+                mesh={"data": 2, "stage": 2})
+    with pytest.raises(ValueError, match="DeviceMesh"):
         Trainer(lambda m, b: m.loss(b), _port_model(pcfg, np_tree), cfg, device="cpu",
                 mesh={"data": 2, "model": 2})
     with pytest.raises(ValueError, match="DeviceMesh"):

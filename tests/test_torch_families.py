@@ -178,10 +178,61 @@ def test_f32_loss_and_grads_match_reference(arch):
     close(ploss, loss, what="loss")
     names = [n for n, _ in plm.named_parameters()]
     pgrads = params_to_jax(dict(zip(names, torch.autograd.grad(ploss, list(plm.parameters())))))
-    # rtol 1e-4, as tests/test_torch_model.py holds the dense LM's grads: an
-    # element of zamba2's embedding grad (0.489) differs by 1.5e-5 between
-    # the packages, which are 2.6e-5 and 1.1e-5 from an f64 run of the port
-    assert_trees_close(pgrads, grads, "grads", rtol=1e-4)
+    if arch != HYBRID:
+        # rtol 1e-4, as tests/test_torch_model.py holds the dense LM's grads
+        assert_trees_close(pgrads, grads, "grads", rtol=1e-4)
+        return
+    # zamba2's SSD grads sum many terms that cancel, so the two packages'
+    # f32 roundings differ by more than any fixed rtol shows on every host.
+    # Both are held against the truth instead, an f64 run of the port on the
+    # same weights, in units of eps32 × max|leaf| of each leaf:
+    # - the reference lies within REF_UNITS of it on every leaf, so a port
+    #   whose f64 run is wrong fails here, on the reference's side;
+    # - each leaf of the port lies within 2 × that leaf's reference distance
+    #   + PORT_UNITS of it.
+    # On an Intel Xeon host the reference's worst was 137-275 units (A_log)
+    # and the port's worst excess over 2 × reference 431 (b1 dt_bias; the
+    # port's worst alone 479, out_proj.w).
+    REF_UNITS, PORT_UNITS = 1000.0, 600.0
+    truth = to_numpy(params_to_jax(_f64_grads(plm, batch)))
+    eps = float(np.finfo(np.float32).eps)
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (flat(v, f"{prefix}{k}.") if isinstance(v, dict)
+                        else [(prefix + k, np.asarray(v, np.float64))])
+
+    port, ref, true = (dict(flat(to_numpy(t))) for t in (pgrads, grads, truth))
+    dist = {k: (float(np.abs(port[k] - t).max()) / u, float(np.abs(ref[k] - t).max()) / u)
+            for k, t in true.items() for u in [eps * max(float(np.abs(t).max()), 1e-30)]}
+    ref_over = {k: r for k, (_, r) in dist.items() if r > REF_UNITS}
+    assert not ref_over, ref_over
+    port_over = {k: (p, r) for k, (p, r) in dist.items() if p > 2 * r + PORT_UNITS}
+    assert not port_over, port_over
+
+
+def _f64_grads(plm, batch):
+    """The port's grads in f64 on ``plm``'s weights: every ``.float()``
+    and every f32 zeros the model makes are taken as f64 while it runs."""
+    cfg = dataclasses.replace(plm.cfg, dtype="float64")
+    m64 = build_model(cfg, device="cpu").double()
+    m64.load_state_dict({k: v.double() for k, v in plm.state_dict().items()})
+    f32, new_zeros, zeros = torch.Tensor.float, torch.Tensor.new_zeros, torch.zeros
+
+    def wide(kw):
+        if kw.get("dtype") is torch.float32:
+            kw["dtype"] = torch.float64
+        return kw
+
+    torch.Tensor.float = lambda t: t.double() if t.is_floating_point() else f32(t)
+    torch.Tensor.new_zeros = lambda t, *a, **kw: new_zeros(t, *a, **wide(kw))
+    torch.zeros = lambda *a, **kw: zeros(*a, **wide(kw))
+    try:
+        loss = m64.loss({k: torch.tensor(v) for k, v in batch.items()})
+        names = [n for n, _ in m64.named_parameters()]
+        return dict(zip(names, torch.autograd.grad(loss, list(m64.parameters()))))
+    finally:
+        torch.Tensor.float, torch.Tensor.new_zeros, torch.zeros = f32, new_zeros, zeros
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -323,9 +374,11 @@ def test_plan_function_is_bitwise_vanilla_at_the_minimal_budget(arch, backend):
     in the plan's node order.  The MoE plan keeps the trace's order, so its
     grads are also bitwise plain autograd's; the hybrid's plan runs nodes in
     another topological order (its graph is non-chain), and autograd then
-    sums the grads of tensors read by several nodes in another order: 4
+    sums the grads of tensors read by several nodes in another order: its
     grads differ from plain autograd's by an ulp or so, whether the plan
-    recomputes or not (ROADMAP.md §3)."""
+    recomputes or not (ROADMAP.md §3).  Which leaves differ depends on the
+    host's rounding, so each leaf is held within 4 × eps32 × its largest
+    magnitude of plain autograd's (the worst measured: 1.01)."""
     _, fn, params, tb = _traced_loss(arch)
     planned = repro_torch.plan_function(fn, planner=Planner(cache=PlanCache()),
                                         backend=backend)
@@ -341,9 +394,10 @@ def test_plan_function_is_bitwise_vanilla_at_the_minimal_budget(arch, backend):
     if arch == MOE:
         assert reordered == []
     else:
-        assert reordered == ["model.embedding.embed",
-                             *(f"model.layers.0.b0_mamba.mamba.{w}"
-                               for w in ("conv_w", "in_proj.w", "out_proj.w"))]
+        eps = torch.finfo(torch.float32).eps
+        far = {k: float((g0[k] - g2[k]).abs().max()) / (eps * float(g0[k].abs().max()))
+               for k in reordered}
+        assert all(v <= 4 for v in far.values()), far
 
 
 @pytest.mark.parametrize("arch", [MOE, HYBRID])

@@ -173,13 +173,14 @@ def test_nan_guard_skips_the_step():
 
 
 def test_trainer_raises_for_what_is_not_ported():
-    """``compress_grads`` and ``mesh=`` are ported
-    (``tests/test_torch_distributed_train.py``); a mesh whose model axis is
-    larger than 1 is not."""
+    """``compress_grads``, ``mesh=`` and the model axis are ported
+    (``tests/test_torch_distributed_train.py``,
+    ``tests/test_torch_model_axis.py``); a mesh axis beyond pod, data and
+    model (a pipeline's stages) is not."""
     _, _, _, plm = _small()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(lambda m, b: m.loss(b), plm, TrainConfig(compress_grads=True), device="cpu",
-                mesh={"data": 1, "model": 2})
+                mesh={"data": 1, "stage": 2})
 
 
 def test_launcher_runs_on_cpu_with_the_reference_plan():

@@ -269,14 +269,20 @@ def case_planning(inp, rank, world):
     def raises(fn: Callable[[], object], match: str) -> bool:
         try:
             fn()
-        except NotImplementedError as e:
+        except (NotImplementedError, RuntimeError) as e:  # DTensor may wrap it
             return match in str(e) and "Multi-device" in str(e)
         return False
 
+    # on the model axis: flash attention whose q heads are split while its
+    # KV heads stay whole (GQA's KV heads the axis does not divide)
+    from repro_torch.kernels.ops import flash_attention
+
     m22 = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    qkv = torch.tensor(inp["ax"]).reshape(2, -1, 2, 4)
     out["model_axis_raises"] = np.array(raises(
-        lambda: repro_torch.plan_function(_mlp, None, mesh=m22, in_shardings=specs)(params, x),
-        "model-axis execution"))
+        lambda: flash_attention(sh.place(qkv, m22, (None, None, "model", None)),
+                                sh.place(qkv, m22, ()), sh.place(qkv, m22, ())),
+        "differing layouts"))
     every = make_plan(cg, [frozenset(range(cg.n))])
     out["strategy_raises"] = np.array(raises(
         lambda: check_plan_on_mesh(carrier, dataclasses.replace(every, strategy={0: "offload"})),
@@ -419,7 +425,267 @@ def case_train(inp, rank, world):
     return out
 
 
-CASES = {"sharding": case_sharding, "planning": case_planning, "train": case_train}
+class FlashLayouts:
+    """A dispatch mode that records the DTensor placements of the flash
+    ops' tensor arguments (forward and backward) and lets DTensor run
+    them; the local q shapes the kernels' wrappers receive are recorded by
+    wrapping the plain versions."""
+
+    def __init__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.placements = []
+        self.local_q = []
+        flash = {torch.ops.repro_torch.flash_attention.default,
+                 torch.ops.repro_torch.flash_attention_bwd.default}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func in flash:
+                    seen.append([tuple(a.placements) for a in args
+                                 if hasattr(a, "placements")])
+                if any(getattr(t, "__name__", "") == "DTensor" for t in types):
+                    return NotImplemented  # DTensor runs it on the local shards
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        fa = sys.modules["repro_torch.kernels.flash_attention"]
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            orig = getattr(fa, name)
+
+            def wrapped(q, *a, _orig=orig, **kw):
+                self.local_q.append(tuple(q.shape))
+                return _orig(q, *a, **kw)
+
+            setattr(fa, name, wrapped)
+
+
+def case_model_axis(inp, rank, world):
+    """The reduced dense LM on ``{data: 2, model: 2}``: tensor-parallel
+    loss and grads (eager, and the ``"fx"`` and ``"interpreter"`` planned
+    twins against their traced vanilla), priced against local bytes, the
+    flash ops' layouts; then the tensor-parallel Trainer's collectives, the
+    FSDP Trainer, ``remesh``, a checkpoint restart and what raises."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    import torch.utils._pytree as pytree
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    import repro_torch
+    from repro_torch.analysis.census import CountCollectives
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import PlanCache, Planner
+    from repro_torch.core.lowering import vanilla_traced_value_and_grad
+    from repro_torch.core.lowering.base import local_tensor, on_mesh
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.launch import specs
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import functional_loss
+
+    mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    data_rank = rank // (world // 2)
+    # the reduced LM (d_model 64) for the loss, the twins and the pricing;
+    # d_model 256 for the Trainers, wide enough for fsdp_extend's floor
+    cfgs = {w: dataclasses.replace(reduced(get_config("stablelm-3b"), d_model=w),
+                                   dtype="float32") for w in (64, 256)}
+    states = {w: {k[len(f"p{w}:"):]: torch.tensor(v) for k, v in inp.items()
+                  if k.startswith(f"p{w}:")} for w in cfgs}
+    steps, seq, batch = int(inp["steps"]), int(inp["seq"]), int(inp["batch"])
+    cfg = cfgs[64]
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                  num_hosts=2, host_id=data_rank))
+    out: Dict[str, np.ndarray] = {}
+
+    def model(width=64):
+        m = build_model(cfgs[width], device="cpu")
+        m.load_state_dict(states[width], strict=True)
+        return m
+
+    def loss_fn(m, b):
+        return m.loss(b)
+
+    # tensor parallelism: the loss and its grads on head-, ffn- and
+    # vocab-sharded parameters and this rank's slice of the global batch
+    m = model()
+    fn, params = functional_loss(loss_fn, m)
+    tp = specs.param_shardings(cfg, mesh, {k[len("model."):]: v for k, v in params.items()})
+    dparams = {k: sh.place(v.detach(), mesh, sh.normalize_spec(tp[k[len("model."):]], mesh,
+                                                                v.dim())).requires_grad_()
+               for k, v in params.items()}
+    db = {k: DTensor.from_local(torch.as_tensor(v), mesh, [Shard(0), Replicate()],
+                                run_check=False) for k, v in data.batch(0).items()}
+    layouts = FlashLayouts()
+    with layouts.mode, on_mesh(list(dparams.values())):
+        loss = fn(dparams, db)
+        grads = torch.autograd.grad(loss, list(dparams.values()))
+    out["loss"] = _full(loss)
+    for k, g in zip(dparams, grads):
+        out["g:" + k] = _full(g)
+    # the wrappers take (B, H, S, D): H/2 heads on each rank
+    out["flash_local_heads"] = np.array(
+        bool(layouts.local_q) and all(q[1] == cfg.n_heads // 2 for q in layouts.local_q))
+    out["flash_local_q"] = np.array(layouts.local_q)
+    # every tensor a flash op receives splits its heads over "model" (mesh
+    # dim 1: dim 2 of (B, S, H, D), dim 1 of lse): DTensor gathers nothing
+    out["flash_heads_layout"] = np.array(bool(layouts.placements) and all(
+        p[1] in (Shard(2), Shard(1)) for call in layouts.placements for p in call))
+    # the flash op forward and backward at those layouts sends nothing
+    qkv = sh.place(torch.randn(2, 8, cfg.n_heads, cfg.head_dim,
+                               generator=torch.Generator().manual_seed(0)),
+                   mesh, ("data", None, "model", None)).requires_grad_()
+    with CountCollectives() as counted:
+        torch.autograd.grad(flash_attention(qkv, qkv, qkv).sum(), qkv)
+    out["attention_collectives"] = np.array(counted.total())
+
+    # the planned twins on two backends, bitwise sharded vanilla; the
+    # per-device pricing against the local bytes of a node-by-node run
+    for backend in ("fx", "interpreter"):
+        pf = repro_torch.plan_function(fn, None, mesh=mesh, in_shardings=(None, None),
+                                       backend=backend, planner=Planner(cache=PlanCache()))
+        low = pf.lowered_for(dparams, db)
+        got = pf(dparams, db)
+        ref = vanilla_traced_value_and_grad(low.carrier)(dparams, db)
+        out[f"{backend}_recomputes"] = np.array(low.plan.overhead > 0)
+        out[f"{backend}_bitwise_vanilla"] = np.array(_bits(got, ref))
+        out[f"{backend}_loss"] = _full(got[0])
+        out[f"{backend}_grads_in_param_placements"] = np.array(all(
+            tuple(got[1][k].placements) == tuple(p.placements) for k, p in dparams.items()))
+    carrier = low.carrier
+    fxg, mem_v = carrier.fx, carrier.to_graph().mem_v
+    out["constraint_nodes"] = np.array(sum(
+        1 for nd in fxg.nodes if "repro_torch.shard" in str(nd.target)))
+    flat = carrier.flatten_args((dparams, db))
+    env, args = {}, iter(flat)
+    with on_mesh(flat), torch.no_grad():
+        for nd in fxg.gm.graph.nodes:
+            if nd.op == "placeholder":
+                env[nd] = next(args)
+            elif nd.op in ("call_function", "get_attr"):
+                env[nd] = fxg.run_node(nd, env.__getitem__)
+    out["local_bytes"] = np.array([
+        sum(local_tensor(t).numel() * local_tensor(t).element_size()
+            for t in pytree.tree_leaves(env[nd]) if isinstance(t, torch.Tensor))
+        for nd in fxg.nodes])
+    out["priced_mem_v"] = np.array(mem_v)
+    del env
+
+    # Trainers on the mesh: tensor parallel plus FSDP over "data"
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    cfg = cfgs[256]
+    named = {n: p for n, p in model(256).named_parameters()}
+    fsdp = sh.named_sharding_tree(named, mesh, fsdp=True)
+    tp = specs.param_shardings(cfg, mesh, named)
+    out["fsdp_leaves"] = np.array(sum(1 for p in fsdp.values() if isinstance(p[0], Shard)))
+
+    def run(tr, n=steps, start=0):
+        return tr.run(data.batch(i) for i in range(start, start + n))
+
+    def trainer(mesh_=mesh, shardings=fsdp, **kw):
+        kw.setdefault("total_steps", steps)
+        return Trainer(loss_fn, model(256), TrainConfig(log_every=0, optimizer=opt, **kw),
+                       device="cpu", mesh=mesh_,
+                       in_shardings=None if mesh_ is None else (shardings, None))
+
+    # one step of the tensor-parallel Trainer: its collectives by axis
+    tpt = trainer(shardings=tp, total_steps=1)
+    run(tpt, 1)
+    for axis, ops in tpt.comm_by_axis.items():
+        for op, rec in ops.items():
+            out[f"tp_comm:{axis}:{op}"] = np.array(rec["payload_bytes"])
+    out["tp_local_param_bytes"] = np.array(sum(p.to_local().numel() * 4 for p in tpt.params))
+    out["tp_model_sharded_leaves"] = np.array(sum(
+        1 for p in tpt.params if not p.placements[1].is_replicate()))
+    del tpt
+
+    tr = trainer()
+    res = run(tr)
+    out["fsdp_losses"], out["fsdp_grad_norms"] = (np.array(res["losses"]),
+                                                 np.array(res["grad_norms"]))
+    out["fsdp_params_sharded"] = np.array(all(
+        tuple(p.placements) == tuple(fsdp[n]) for n, p in zip(tr.names, tr.params)))
+    out["fsdp_local_param_bytes"] = np.array(sum(p.to_local().numel() * 4 for p in tr.params))
+    for axis, ops in (tr.comm_by_axis or {}).items():
+        for op, rec in ops.items():
+            out[f"comm:{axis}:{op}"] = np.array(rec["payload_bytes"])
+    b0 = {k: torch.as_tensor(v) for k, v in data.batch(0).items()}
+    fn2, by_key = functional_loss(loss_fn, tr.model)
+    probe = repro_torch.plan_function(fn2, None, mesh=mesh, in_shardings=(None, None))
+    budget = probe.lowered_for(by_key, tr._place_batch(b0)).plan.peak_memory
+    planned = trainer(plan_budget=budget)
+    pres = run(planned)
+    out["fsdp_planned_bitwise"] = np.array(
+        pres["losses"] == res["losses"] and pres["grad_norms"] == res["grad_norms"]
+        and all(torch.equal(a.to_local(), b.to_local())
+                for a, b in zip(planned.params, tr.params)))
+
+    # remesh(shardings=): from no mesh, and from the TP-only layout, onto
+    # the FSDP layout before any step: bitwise a Trainer built there
+    for name, src in (("none", dict(mesh_=None)), ("tp", dict(shardings=tp))):
+        moved = trainer(**src)
+        moved.remesh(mesh, shardings=fsdp)
+        mres = run(moved)
+        out[f"remesh_{name}_bitwise"] = np.array(
+            mres["losses"] == res["losses"] and mres["grad_norms"] == res["grad_norms"]
+            and all(torch.equal(a.to_local(), b.to_local())
+                    for a, b in zip(moved.params, tr.params)))
+
+    # a checkpoint restart on sharded parameters: full arrays on disk,
+    # written by rank 0; with steps 2 and 3 gone a new Trainer resumes at 1
+    ckpt = os.path.join(str(inp["dir"]), "ckpt")
+    first = trainer(ckpt_dir=ckpt, ckpt_every=1)
+    fres = run(first)
+    first.close()
+    dist.barrier()
+    if rank == 0:
+        from repro_torch.checkpointing.store import read_json
+
+        manifest = read_json(os.path.join(ckpt, f"step_{steps:09d}", "MANIFEST.json"))
+        out["ckpt_full_shapes"] = np.array(all(
+            tuple(manifest["leaves"][f"params/{n}"]["shape"]) == tuple(p.shape)
+            for n, p in named.items()))
+        for s_ in range(2, steps + 1):
+            shutil.rmtree(os.path.join(ckpt, f"step_{s_:09d}"))
+    dist.barrier()
+    again = trainer(ckpt_dir=ckpt, ckpt_every=1)
+    out["ckpt_restored"] = np.array(again.maybe_restore() and again.step == 1)
+    ares = run(again, steps - 1, 1)
+    again.close()
+    out["ckpt_resumed_bitwise"] = np.array(
+        ares["losses"] == fres["losses"][1:] and ares["grad_norms"] == fres["grad_norms"][1:]
+        and all(torch.equal(a.to_local(), b.to_local())
+                for a, b in zip(again.params, first.params)))
+
+    # what still raises on the model axis, naming ROADMAP.md 'Multi-device'
+    def raises(fn_: Callable[[], object], match: str) -> bool:
+        try:
+            fn_()
+        except NotImplementedError as e:
+            return match in str(e) and "Multi-device" in str(e)
+        return False
+
+    out["compress_raises"] = np.array(raises(lambda: trainer(compress_grads=True),
+                                             "compress_grads on sharded parameters"))
+    moe_cfg = dataclasses.replace(reduced(get_config("granite-moe-3b-a800m")), dtype="float32")
+    moe = build_model(moe_cfg, device="cpu")
+    out["moe_raises"] = np.array(raises(
+        lambda: Trainer(loss_fn, moe, TrainConfig(log_every=0, total_steps=1), device="cpu",
+                        mesh=mesh).train_step({k: torch.as_tensor(v) for k, v in SyntheticLM(
+                            DataConfig(moe_cfg.vocab_size, seq, batch, num_hosts=2,
+                                       host_id=data_rank)).batch(0).items()}),
+        "family on a model axis"))
+    return out
+
+
+CASES = {"sharding": case_sharding, "planning": case_planning, "train": case_train,
+         "model_axis": case_model_axis}
 
 
 def main() -> None:
