@@ -167,6 +167,19 @@ MODEL_AXIS_BATCH = 2
 MODEL_AXIS_STEPS = 3
 MODEL_AXIS_BIG = ("qwen2.5-14b", "qwen3-moe-30b-a3b", "mistral-large-123b")
 MODEL_AXIS_BIG_MESH = {"data": 16, "model": 16}
+# phase axis_serve, on MODEL_AXIS_MESH at global batch MODEL_AXIS_BATCH:
+# stablelm-3b and granite 2 units deep; stablelm's engine (slots, cache
+# length, requests, new tokens); its KV cache a rank: 2 units x k, v x 4
+# slots x 2048 x 16 KV heads x 80 x 2 B; zamba2 and xlstm one unit,
+# whisper 2 layers a side
+AXIS_SERVE_UNITS = 2
+AXIS_SERVE_DECODE = (8, 2048, 16, 64)
+AXIS_SERVE_CACHE_BYTES = 2 * 2 * 4 * 2048 * 16 * 80 * 2
+AXIS_SERVE_GRANITE_STEPS = 3
+GRANITE_AXIS_DECODE_TOKENS = 8
+AXIS_SERVE_FAMILIES = (("zamba2-2.7b", 6), ("xlstm-1.3b", 8), ("whisper-small", 2))
+AXIS_SERVE_FAMILY_STEPS = 2
+AXIS_SERVE_FAMILY_DTYPES = ("bfloat16", "float32")
 SERVE_ARGS = ["--full", "--requests", "16", "--slots", "8", "--max-seq", "2048",
               "--new-tokens", "64"]
 TEACHER_TOKENS = 128
@@ -243,11 +256,16 @@ KERNEL_CASES = [
     # phase model_axis: one rank's local shard of the training shape, its
     # half of the heads ({data: 2, model: 2} on batch 2)
     ("model_axis", 1, 16, 16, 1024, 1024, 80, "bfloat16", True),
+    # phase axis_serve: one rank's shard of granite's attention (its half of
+    # 24 q and 8 KV heads, one sequence) and of whisper's encoder (its half
+    # of 12 heads, one clip)
+    ("granite_axis", 1, 12, 4, 1024, 1024, 64, "bfloat16", True),
+    ("whisper_enc_axis", 1, 6, 6, 1500, 1500, 64, "bfloat16", False),
 ]
 # the cases timed beside their bounds and library calls: the dense path's
 # (whose numbers fill the kernels JSON line) and each model family's
 TIMED_CASES = ("path", "granite", "whisper_enc", "whisper_cross", "whisper_dec", "vision",
-               "model_axis")
+               "model_axis", "granite_axis", "whisper_enc_axis")
 # limits on |kernel - plain| for outputs and gradients, by dtype: absolute,
 # plus for bf16 one unit in the last place of the plain value (2**-7 |ref|),
 # by which two roundings of nearly equal values can differ (a value near 10
@@ -1485,6 +1503,12 @@ def expected_collectives(cfg, local_param_bytes, model_sharded_leaves: int) -> d
     * model, all-gather: 4L·A/m bf16, the residual's sequence shards
       gathered before the attention's and the MLP's matmuls and for their
       weights' gradients.
+    * model, all-to-all (an MoE config; phase axis_serve's granite checks
+      this entry alone): each MoE layer exchanges its (E, C_loc, D) bf16
+      buffer twice in the forward and twice in the backward, T_loc =
+      B_l·S/m tokens a rank (batch over data, sequence over model), C_loc =
+      max(8, ceil(cf·T_loc·K/E)); granite at 2 units: (40, 128, 1536),
+      15,728,640 B a buffer, 125,829,120 B a step.
 
     The counts per unit are those the same code sent on four gloo CPU
     ranks at L 1-3, D 128-256, S 32-128 and B_l 1-2, where this formula
@@ -1493,7 +1517,7 @@ def expected_collectives(cfg, local_param_bytes, model_sharded_leaves: int) -> d
     m, S = MODEL_AXIS_MESH["model"], 1024
     Bl = MODEL_AXIS_BATCH // MODEL_AXIS_MESH["data"]
     A = Bl * S * D
-    return {
+    out = {
         "data": {"all_reduce": sum(local_param_bytes) + 4},
         "model": {
             "all_reduce": (4 * L + 2) * A * 2 + 3 * Bl * (S - 1) * 4 + (2 * L - 1) * D * 4
@@ -1501,6 +1525,12 @@ def expected_collectives(cfg, local_param_bytes, model_sharded_leaves: int) -> d
             "all_gather_into_tensor": 4 * L * (A // m) * 2,
         },
     }
+    if cfg.moe is not None:
+        moe = cfg.moe
+        t_loc = Bl * S // m
+        c_loc = max(8, math.ceil(moe.capacity_factor * t_loc * moe.top_k / moe.num_experts))
+        out["model"]["all_to_all_single"] = 4 * L * moe.num_experts * c_loc * D * 2
+    return out
 
 
 def phase_model_axis(results):
@@ -1602,6 +1632,464 @@ def phase_model_axis(results):
               f"({time.perf_counter() - t0:.2f} s, meta device)")
         check(0 < per < torch.cuda.get_device_properties(0).total_memory,
               f"{arch}'s per-device state does not fit the card")
+
+
+def per_shard_moe(dp: int, tp: int):
+    """A one-process ``moe_apply`` with the mesh path's semantics: the
+    tokens cut into the dp × tp shards the ranks hold (batch over data,
+    sequence over model), each routed and packed with its own capacity
+    C_loc; the meshless reference of phase axis_serve's granite."""
+    import torch
+
+    moe = importlib.import_module("repro_torch.models.moe")
+
+    def apply(p, x, cfg, return_aux=False):
+        B, S, D = x.shape
+        E, K = cfg.num_experts, cfg.top_k
+        bl, sl = B // dp, S // tp
+        c_loc = max(8, math.ceil(cfg.capacity_factor * bl * sl * K / E))
+        rows = []
+        for d in range(dp):
+            cols = []
+            for m in range(tp):
+                xt = x[d * bl:(d + 1) * bl, m * sl:(m + 1) * sl].reshape(bl * sl, D)
+                gates, ids, _, _ = moe._route(p["router"], xt, cfg)
+                disp, eid, pos_c, keep = moe._pack(xt, ids, E, c_loc)
+                out = moe._expert_ffn(p["experts"], disp)
+                cols.append(moe._combine(out, eid, pos_c, keep, gates, bl * sl, K)
+                            .reshape(bl, sl, D))
+            rows.append(torch.cat(cols, 1))
+        return torch.cat(rows, 0)
+
+    return apply
+
+
+def axis_serve_model(arch: str, layers: int, dev, dtype: str = "bfloat16"):
+    """``arch`` at full width, ``layers`` deep, activations in ``dtype``,
+    weights from seed 0 on the card (every process draws the same)."""
+    import dataclasses
+
+    import torch
+
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers, dtype=dtype)
+    return cfg, models.build_model(cfg, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0))
+
+
+def axis_serve_batches(cfg, n: int, dev, host_id=None) -> list:
+    """The first ``n`` batches of a family's stream at global batch
+    ``MODEL_AXIS_BATCH``: data rank ``host_id``'s rows, or the whole batch
+    (``host_id=None``, what one process runs); whisper's carry one clip of
+    frames a row."""
+    data = importlib.import_module("repro_torch.data")
+    hosts = MODEL_AXIS_MESH["data"]
+    seq = WHISPER_TOKENS if cfg.encoder_decoder else 1024
+    stream = data.DataConfig(cfg.vocab_size, seq, MODEL_AXIS_BATCH, num_hosts=hosts,
+                             host_id=host_id or 0)
+    rows = slice(None) if host_id is None else slice(
+        host_id * MODEL_AXIS_BATCH // hosts, (host_id + 1) * MODEL_AXIS_BATCH // hosts)
+    out = []
+    for i in range(n):
+        b = dict(data.global_batch_for_test(stream, i) if host_id is None
+                 else data.SyntheticLM(stream).batch(i))
+        if cfg.encoder_decoder:
+            b["frames"] = whisper_frames(cfg, i, MODEL_AXIS_BATCH, dev)[rows]
+        out.append(b)
+    return out
+
+
+def axis_serve_worker(out_dir: Path) -> int:
+    """One of phase axis_serve's processes (under ``torch.distributed.run``):
+    on ``{data: 2, model: 2}`` over the gloo group sharing the card,
+    stablelm-3b's sharded engine (rank 0 also replays its tokens through
+    the same engine unsharded), granite's expert-parallel Trainer and
+    sharded decode, and zamba2's, xlstm's and whisper's Trainers (whisper's
+    engine encoding on head shards); a ``summary:`` line (rank 0) and
+    ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.utils._pytree as pytree
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    configs = importlib.import_module("repro_torch.configs")
+    specs = importlib.import_module("repro_torch.launch.specs")
+    steps = importlib.import_module("repro_torch.launch.steps")
+    serving = importlib.import_module("repro_torch.serving")
+    train = importlib.import_module("repro_torch.train")
+    census = importlib.import_module("repro_torch.analysis.census")
+    import faulthandler
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    # ranks sharing one card: NCCL cannot; a rank stuck in a collective
+    # fails in minutes, not at gloo's default half hour
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=300))
+    route_gloo_cuda_collectives()
+    rank = dist.get_rank()
+    if rank == 0:
+        print(f"process group: gloo, {dist.get_world_size()} ranks sharing 1 card", flush=True)
+    sizes = MODEL_AXIS_MESH
+    mesh = init_device_mesh("cuda", tuple(sizes.values()), mesh_dim_names=tuple(sizes))
+    data_rank = rank // sizes["model"]
+    dev = torch.device("cuda")
+    heads, fwd = [], fa.flash_attention_fwd
+
+    def counted_fwd(q, *a, **kw):
+        heads.append(int(q.shape[1]))
+        return fwd(q, *a, **kw)
+
+    fa.flash_attention_fwd = counted_fwd
+    out = {"rank": rank}
+
+    def by_axis(counted):
+        return {axis: {op: rec["payload_bytes"] for op, rec in ops.items()}
+                for axis, ops in counted.by_axis(mesh).items()}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def decode_section():
+        # stablelm-3b: the sharded engine, and (rank 0) the same engine
+        # unsharded fed the sharded engine's tokens
+        cfg, model = axis_serve_model("stablelm-3b", AXIS_SERVE_UNITS, dev)
+        slots, max_seq, n_req, new = AXIS_SERVE_DECODE
+        shape = configs.ShapeConfig("axis_serve", max_seq, slots, "decode")
+        fa.reset_launch_counts()
+        heads.clear()
+        torch.cuda.reset_peak_memory_stats()
+        eng = serving.Engine(model, max_slots=slots, max_seq=max_seq, mesh=mesh,
+                             step_shardings=steps.decode_shardings(cfg, shape, mesh))
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, size=rng.integers(4, 32)).tolist()
+                   for _ in range(n_req)]
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=new)
+        fed, next_token = [], eng._next_token_for
+
+        def logged(slot):
+            fed.append(next_token(slot))
+            return fed[-1]
+
+        eng._next_token_for = logged
+        logits, step_comm = [], None
+        t0 = time.perf_counter()
+        while eng.pending or any(r is not None for r in eng.slot_req):
+            if step_comm is None and len(eng.step_seconds) == 8:  # a step in steady state
+                with census.CountCollectives() as counted:
+                    eng.step()
+                step_comm = by_axis(counted)
+            else:
+                eng.step()
+            if rank == 0:
+                logits.append(eng.last_logits)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        done = eng.completed
+        ms = np.array(eng.step_seconds) * 1e3
+        out["decode"] = {
+            "requests": len(done), "tokens": sum(len(r.output) for r in done),
+            "complete": all(len(r.output) == new for r in done) and len(done) == n_req,
+            "steps": len(ms), "seconds": seconds, "median_ms": float(np.median(ms)),
+            "p90_ms": float(np.percentile(ms, 90)), "first_ms": float(ms[0]),
+            "cache_bytes": sum(t.to_local().numel() * t.to_local().element_size()
+                               for t in pytree.tree_leaves(eng.caches)),
+            "step_collectives": step_comm, "launches": dict(fa.LAUNCHES),
+            "finite": bool(all(np.isfinite(x).all() for x in logits)),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+        }
+        del eng, model
+        free()
+        if rank == 0:  # the same engine unsharded, fed the same tokens, in this process
+            cfg, plain = axis_serve_model("stablelm-3b", AXIS_SERVE_UNITS, dev)
+            ref = serving.Engine(plain, max_slots=slots, max_seq=max_seq)
+            for prompt in prompts:
+                ref.submit(prompt, max_new_tokens=new)
+            feed = iter(fed)
+            ref._next_token_for = lambda slot: next(feed)
+            gaps, agree, i = [], [], 0
+            while ref.pending or any(r is not None for r in ref.slot_req):
+                ref.step()
+                gap = np.abs(ref.last_logits - logits[i])
+                gaps.append((gap.max(), gap.mean()))
+                agree.append(ref.last_logits.argmax(-1) == logits[i].argmax(-1))
+                i += 1
+            out["decode"]["vs_unsharded"] = {
+                "steps": i, "max_gap": float(max(g for g, _ in gaps)),
+                "mean_gap": float(np.mean([m for _, m in gaps])),
+                "agreement": float(np.concatenate(agree).mean()),
+                "unsharded_median_ms": float(np.median(ref.step_seconds) * 1e3)}
+            del ref, plain
+            free()
+
+    def granite_section():
+        # granite-moe-3b-a800m: the expert-parallel Trainer, then decode
+        cfg, model = axis_serve_model("granite-moe-3b-a800m", AXIS_SERVE_UNITS, dev)
+        layout = specs.param_shardings(cfg, mesh, dict(model.named_parameters()))
+        heads.clear()
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        tr = train.Trainer(lambda m, b: m.loss(b, (AXIS_SERVE_UNITS,), (False,)), model,
+                           train.TrainConfig(total_steps=AXIS_SERVE_GRANITE_STEPS, log_every=0),
+                           device="cuda", mesh=mesh, in_shardings=(layout, None))
+        res = tr.run(iter(axis_serve_batches(cfg, AXIS_SERVE_GRANITE_STEPS, dev, data_rank)))
+        torch.cuda.synchronize()
+        out["granite"] = {"losses": res["losses"], "step_seconds": res["step_seconds"],
+                          "comm": {a: {o: r["payload_bytes"] for o, r in ops.items()}
+                                   for a, ops in tr.comm_by_axis.items()},
+                          "q_heads": sorted(set(heads)), "launches": dict(fa.LAUNCHES),
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        del tr
+        free()
+        shape = configs.ShapeConfig("axis_serve", 64, 8, "decode")
+        eng = serving.Engine(model, max_slots=8, max_seq=64, mesh=mesh,
+                             step_shardings=steps.decode_shardings(cfg, shape, mesh))
+        for i in range(8):
+            eng.submit([1 + i, 2 + i, 3 + i, 4 + i], max_new_tokens=GRANITE_AXIS_DECODE_TOKENS)
+        with census.CountCollectives() as counted:
+            eng.step()
+        done = eng.run()
+        out["granite"]["decode"] = {
+            "tokens": sum(len(r.output) for r in done),
+            "complete": len(done) == 8 and all(len(r.output) == GRANITE_AXIS_DECODE_TOKENS
+                                               for r in done),
+            "median_ms": float(np.median(eng.step_seconds) * 1e3),
+            "finite": bool(np.isfinite(eng.last_logits).all()),
+            "first_step_collectives": by_axis(counted)}
+        del eng, model
+        free()
+
+    def family_section(arch, layers):
+        # a recurrent or encoder-decoder family on the model axis: its
+        # Trainer in the config's bf16 and in f32, then (whisper) its engine
+        out[arch] = {}
+        for dtype in AXIS_SERVE_FAMILY_DTYPES:
+            cfg, model = axis_serve_model(arch, layers, dev, dtype)
+            layout = specs.param_shardings(cfg, mesh, dict(model.named_parameters()))
+            heads.clear()
+            fa.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            units = model.n_units
+            tr = train.Trainer(lambda m, b: m.loss(b, (units,), (False,)), model,
+                               train.TrainConfig(total_steps=AXIS_SERVE_FAMILY_STEPS,
+                                                 log_every=0),
+                               device="cuda", mesh=mesh, in_shardings=(layout, None))
+            res = tr.run(iter(axis_serve_batches(cfg, AXIS_SERVE_FAMILY_STEPS, dev,
+                                                 data_rank)))
+            torch.cuda.synchronize()
+            out[arch][dtype] = {
+                "losses": res["losses"], "step_seconds": res["step_seconds"],
+                "q_heads": sorted(set(heads)), "launches": dict(fa.LAUNCHES),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "state_bytes": 3 * sum(p.to_local().numel() * 4 for p in tr.params),
+                "specs_state_bytes": specs.state_bytes_per_device(cfg, sizes)}
+            del tr
+            free()
+        if cfg.encoder_decoder:  # the engine encodes its clips on head shards
+            heads.clear()
+            fa.reset_launch_counts()
+            frames = whisper_frames(cfg, 0, 2, dev)
+            shape = configs.ShapeConfig("axis_serve", 64, 2, "decode")
+            eng = serving.Engine(model, max_slots=2, max_seq=64, frames=frames, mesh=mesh,
+                                 step_shardings=steps.decode_shardings(cfg, shape, mesh))
+            for i in range(2):
+                eng.submit([50257 + i, 50258], max_new_tokens=8)
+            done = eng.run()
+            out[arch]["engine"] = {
+                "q_heads": sorted(set(heads)), "launches": dict(fa.LAUNCHES),
+                "complete": len(done) == 2 and all(len(r.output) == 8 for r in done),
+                "finite": bool(np.isfinite(eng.last_logits).all())}
+            del eng
+        del model
+        free()
+
+    def guarded(name, fn, *args):
+        """``fn`` on every rank; an error is recorded under ``name`` (every
+        rank raises alike at the same point, so the group stays in step)."""
+        try:
+            fn(*args)
+        except Exception:
+            import traceback
+
+            out[name] = {"error": traceback.format_exc()[-4000:]}
+        free()
+        dist.barrier()
+
+    guarded("decode", decode_section)
+    guarded("granite", granite_section)
+    for arch, layers in AXIS_SERVE_FAMILIES:
+        guarded(arch, family_section, arch, layers)
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    if rank == 0:
+        print("summary: " + json.dumps({"ranks": dist.get_world_size()}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_axis_serve(results):
+    """Serving on a mesh and every family on the model axis: four gloo
+    processes sharing the card on ``{data: 2, model: 2}``
+    (``torch.distributed.run`` of this script's ``--axis-serve-worker``).
+    stablelm-3b's sharded engine at full width, 2 units (16 requests of 64
+    tokens through 8 slots of a 2048-token cache) held against the same
+    engine unsharded fed the same tokens (phase serve's bf16 limits), its
+    cache bytes a rank, step times and one step's collectives by axis;
+    granite's expert-parallel Trainer (3 steps, losses against one process
+    routing the same shards, step 1's all-to-all bytes against the
+    shapes') and 8 sharded decode tokens; zamba2's, xlstm's (1 unit each)
+    and whisper's (2 layers a side) Trainers, 2 steps against one
+    process's meshless Trainer, state bytes against ``specs``; whisper's
+    engine encoding on head shards; every process's kernels' heads and
+    peak."""
+    import tempfile
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    moe = importlib.import_module("repro_torch.models.moe")
+    train = importlib.import_module("repro_torch.train")
+    world = math.prod(MODEL_AXIS_MESH.values())
+    out_dir = Path(tempfile.mkdtemp())
+    t0 = time.perf_counter()
+    run = torchrun(world, ["--axis-serve-worker", str(out_dir)], module=None, timeout=900)
+    print(f"[axis_serve] {world} processes ({run['process_group']!r}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check((run["process_group"] or "").startswith("gloo"), "the processes did not take gloo")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+    errors = {(r["rank"], k): v["error"] for r in ranks for k, v in r.items()
+              if isinstance(v, dict) and "error" in v}
+    failures = []
+
+    def soft(cond: bool, msg: str) -> None:  # every result printed before the phase fails
+        if not cond:
+            failures.append(msg)
+
+    for (rank, section), text in errors.items():
+        print(f"[axis_serve] rank {rank} {section} FAILED:\n{text}")
+    check(not errors, f"sections failed: {sorted(errors)}")
+    dev = torch.device("cuda")
+
+    # stablelm-3b's sharded engine
+    for r in ranks:
+        d = r["decode"]
+        print(f"[axis_serve] rank {r['rank']} stablelm-3b engine: {d['requests']} requests, "
+              f"{d['tokens']} tokens, {d['steps']} steps in {d['seconds']:.4f} s; step ms "
+              f"first {d['first_ms']:.4f}, median {d['median_ms']:.4f}, p90 {d['p90_ms']:.4f}; "
+              f"KV cache {d['cache_bytes']} B a rank; one step's collectives (payload B) "
+              f"{d['step_collectives']}; launches {json.dumps(d['launches'])}; peak "
+              f"{d['peak_bytes']} B")
+        soft(d["complete"], f"rank {r['rank']}'s sharded engine left a request incomplete")
+        soft(d["cache_bytes"] == AXIS_SERVE_CACHE_BYTES,
+              f"rank {r['rank']} holds {d['cache_bytes']} B of caches, not "
+              f"{AXIS_SERVE_CACHE_BYTES}")
+        soft(all(v == 0 for v in d["launches"].values()), "decode launched a kernel")
+    vs = ranks[0]["decode"]["vs_unsharded"]
+    print(f"[axis_serve] sharded against unsharded on the same tokens, {vs['steps']} steps: "
+          f"max |gap| {vs['max_gap']:.4e}, mean |gap| {vs['mean_gap']:.4e}, greedy agreement "
+          f"{vs['agreement']:.4f}; unsharded median step {vs['unsharded_median_ms']:.4f} ms")
+    soft(ranks[0]["decode"]["finite"], "a sharded decode step gave a non-finite logit")
+    soft(vs["max_gap"] <= TEACHER_BF16_MAX and vs["mean_gap"] <= TEACHER_BF16_MEAN
+          and vs["agreement"] >= TEACHER_BF16_AGREE,
+          "the sharded engine's logits differ from the unsharded engine's")
+
+    # granite: the expert-parallel Trainer against one process routing the same shards
+    cfg, model = axis_serve_model("granite-moe-3b-a800m", AXIS_SERVE_UNITS, dev)
+    apply, moe.moe_apply = moe.moe_apply, per_shard_moe(MODEL_AXIS_MESH["data"],
+                                                        MODEL_AXIS_MESH["model"])
+    try:
+        tr = train.Trainer(lambda m, b: m.loss(b, (AXIS_SERVE_UNITS,), (False,)), model,
+                           train.TrainConfig(total_steps=AXIS_SERVE_GRANITE_STEPS, log_every=0),
+                           device="cuda")
+        single = tr.run(iter(axis_serve_batches(cfg, AXIS_SERVE_GRANITE_STEPS, dev)))
+    finally:
+        moe.moe_apply = apply
+    del tr, model
+    torch.cuda.empty_cache()
+    want_a2a = expected_collectives(cfg, [], 0)["model"]["all_to_all_single"]
+    print(f"[axis_serve] granite one process, per-shard routing: losses {single['losses']}")
+    for r in ranks:
+        g = r["granite"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], single["losses"]))
+        a2a = g["comm"].get("model", {}).get("all_to_all_single")
+        print(f"[axis_serve] rank {r['rank']} granite EP Trainer: losses {g['losses']} (worst "
+              f"relative gap {worst:.3e}); step seconds {[round(t, 4) for t in g['step_seconds']]}"
+              f"; step 1 collectives (payload B) {g['comm']}; all-to-all {a2a} B against the "
+              f"shapes' {want_a2a} B; q heads {g['q_heads']}; launches "
+              f"{json.dumps(g['launches'])}; peak {g['peak_bytes']} B")
+        dd = g["decode"]
+        print(f"[axis_serve] rank {r['rank']} granite sharded decode: {dd['tokens']} tokens, "
+              f"median step {dd['median_ms']:.4f} ms, first step's collectives "
+              f"{dd['first_step_collectives']}")
+        soft(worst < 1e-4, f"rank {r['rank']}'s granite losses differ from one process's "
+              "beyond 1e-4")
+        soft(a2a == want_a2a, f"rank {r['rank']}'s all-to-all bytes differ from the shapes'")
+        soft(g["q_heads"] == [cfg.n_heads // MODEL_AXIS_MESH["model"]],
+              f"rank {r['rank']}'s granite kernels did not get half the heads")
+        soft(dd["complete"] and dd["finite"], f"rank {r['rank']}'s granite decode failed")
+        soft(all(g["launches"][k] > 0 for k in fa.KERNELS),
+              f"rank {r['rank']}'s granite Trainer launched a kernel no time")
+    for name in fa.KERNELS:
+        results[name]["axis_serve_launches"] = {
+            "granite": [r["granite"]["launches"][name] for r in ranks]}
+
+    # zamba2, xlstm and whisper against one process's meshless Trainer: in
+    # f32 to 1e-4 (the layout's partial sums round in f32 there); in bf16
+    # the gap is printed (each rank rounds its partial sums to bf16 before
+    # the model axis adds them, once a block)
+    for arch, layers in AXIS_SERVE_FAMILIES:
+        for dtype in AXIS_SERVE_FAMILY_DTYPES:
+            cfg, model = axis_serve_model(arch, layers, dev, dtype)
+            units = model.n_units
+            tr = train.Trainer(lambda m, b: m.loss(b, (units,), (False,)), model,
+                               train.TrainConfig(total_steps=AXIS_SERVE_FAMILY_STEPS,
+                                                 log_every=0), device="cuda")
+            single = tr.run(iter(axis_serve_batches(cfg, AXIS_SERVE_FAMILY_STEPS, dev)))
+            del tr, model
+            torch.cuda.empty_cache()
+            print(f"[axis_serve] {arch} {dtype} one process: losses {single['losses']}")
+            for r in ranks:
+                x = r[arch][dtype]
+                worst = max(abs(a - b) / abs(b) for a, b in zip(x["losses"], single["losses"]))
+                print(f"[axis_serve] rank {r['rank']} {arch} {dtype}: losses {x['losses']} "
+                      f"(worst relative gap {worst:.3e}); step seconds "
+                      f"{[round(t, 4) for t in x['step_seconds']]}; q heads {x['q_heads']}; "
+                      f"launches {json.dumps(x['launches'])}; peak {x['peak_bytes']} B; "
+                      f"parameters + AdamW {x['state_bytes']} B against specs' "
+                      f"{x['specs_state_bytes']} B")
+                if dtype == "float32":
+                    soft(worst < 1e-4, f"rank {r['rank']}'s {arch} f32 losses differ from one "
+                         "process's beyond 1e-4")
+                soft(x["state_bytes"] == x["specs_state_bytes"],
+                     f"rank {r['rank']}'s {arch} state bytes are not specs'")
+                soft(all((x["launches"][k] > 0) == (attention_blocks(cfg) > 0)
+                         for k in fa.KERNELS),
+                     f"rank {r['rank']}'s {arch} Trainer launched the kernels "
+                     f"{x['launches']} times")
+                if attention_blocks(cfg):
+                    soft(x["q_heads"] == [cfg.n_heads // MODEL_AXIS_MESH["model"]],
+                         f"rank {r['rank']}'s {arch} kernels did not get half the heads")
+        for r in ranks:
+            e = r[arch].get("engine")
+            if e is not None:
+                print(f"[axis_serve] rank {r['rank']} {arch} engine: q heads {e['q_heads']}, "
+                      f"launches {json.dumps(e['launches'])}")
+                soft(e["q_heads"] == [cfg.n_heads // MODEL_AXIS_MESH["model"]]
+                     and e["launches"]["flash_fwd"] == cfg.n_layers and e["complete"]
+                     and e["finite"], f"rank {r['rank']}'s {arch} engine failed")
+        for name in fa.KERNELS:
+            results[name].setdefault("axis_serve_launches", {})[arch] = [
+                r[arch]["bfloat16"]["launches"][name] for r in ranks]
+    check(not failures, "; ".join(failures))
 
 
 def phase_analysis(results, state):
@@ -2810,6 +3298,7 @@ def main() -> int:
         ("planned", lambda: phase_planned(results, state)),
         ("mesh", lambda: phase_mesh(results, state)),
         ("model_axis", lambda: phase_model_axis(results)),
+        ("axis_serve", lambda: phase_axis_serve(results)),
         ("analysis", lambda: phase_analysis(results, state)),
         ("strategies", lambda: phase_strategies(results)),
         ("costs", lambda: phase_costs(results)),
@@ -2873,6 +3362,8 @@ def time_cuts() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--model-axis-worker"]:  # one of phase model_axis's processes
         sys.exit(model_axis_worker(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--axis-serve-worker"]:  # one of phase axis_serve's processes
+        sys.exit(axis_serve_worker(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--time-cuts"]:
         sys.exit(time_cuts())
     sys.exit(main())

@@ -7,7 +7,10 @@ submit the same prompts.  An encoder-decoder arch (whisper) gets one clip
 of frames a slot, drawn from a generator seeded 1 on the device (the
 reference draws them from ``PRNGKey(1)``, so the clips differ).  The
 device is CUDA unless ``--device cpu`` is given; without a card the CUDA
-default raises.  ``main`` returns the
+default raises.  Under ``torchrun`` (``WORLD_SIZE`` set) every rank serves
+the same requests through one sharded engine on the host mesh
+``{data: world, model: 1}`` (``Engine(mesh=)``: the slots split over
+``data``), on ``launch.mesh.init_distributed``'s backend; rank 0 prints.  ``main`` returns the
 completed requests, the wall seconds, the engine steps and each step's
 seconds, and the engine.
 """
@@ -15,12 +18,14 @@ seconds, and the engine.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.launch.train import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serving import Engine
@@ -46,6 +51,15 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    mesh, rank, owned = None, 0, False
+    if "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        owned = not dist.is_initialized()
+        rank = init_distributed(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_host_mesh(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(cfg, device=device, generator=gen)
     kw = {}
@@ -54,7 +68,7 @@ def main(argv=None):
             (args.slots, cfg.frontend_seq, cfg.d_model), device=device,
             generator=torch.Generator(device=device).manual_seed(1))
     eng = Engine(model, max_slots=args.slots, max_seq=args.max_seq,
-                 plan_cache_dir=args.plan_cache_dir, **kw)
+                 plan_cache_dir=args.plan_cache_dir, mesh=mesh, **kw)
 
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
@@ -66,8 +80,11 @@ def main(argv=None):
     done = eng.run()
     dt = time.perf_counter() - t0
     toks = sum(len(r.output) for r in done)
-    print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s) over {len(eng.step_seconds)} engine steps")
+    if rank == 0:
+        print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s "
+              f"({toks / dt:.1f} tok/s) over {len(eng.step_seconds)} engine steps")
+    if owned:
+        torch.distributed.destroy_process_group()
     return dict(completed=done, seconds=dt, steps=len(eng.step_seconds),
                 step_seconds=list(eng.step_seconds), engine=eng)
 

@@ -6,7 +6,8 @@ every full-sequence attention to ``kernels.flash_attention``: the CUDA
 kernels on the card (any length, bounds-checked), their plain versions on
 the CPU.  ``dense_attention`` is the O(S²)-memory reference the tests
 compare with.  ``decode_attention`` is one step of KV-cache decode in plain
-PyTorch, as the reference's is plain array code.  ``chunked_attention`` is
+PyTorch, as the reference's is plain array code (on DTensors, on each
+rank's shard of the cache).  ``chunked_attention`` is
 the reference's memory-efficient XLA lowering in plain torch (an online
 softmax over KV chunks); as in the reference off its kernel, ``attention``
 takes it, under a checkpoint, for a CPU tensor longer than
@@ -19,9 +20,10 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.ops import flash_attention
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import resolve, shard, spec_to_placements
 from .layers import apply_rope, checkpointed, gather_sequence
 
 
@@ -176,21 +178,128 @@ def decode_attention(
     the reference's ``dynamic_update_slice_in_dim`` does, a position past
     the cache's end writes to its last row, while RoPE and the mask see the
     position itself.
+
+    On DTensors each rank writes the rows and heads its cache shard holds,
+    on its local tensor (:func:`_write_rows`), and attends on its shard
+    (:func:`attend_cache`): the cache is neither gathered nor copied.  The
+    reference pins the cache to ``("batch", "seq_sp", "kv_heads", None)``;
+    a cache stored in another layout is redistributed to it for the
+    attention (a copy), after the write.
     """
     B = x.shape[0]
     q, k, v = qkv_proj(p, x, n_heads, n_kv_heads, d_head, position[:, None],
                        rope_theta)
-    S = cache_k.shape[1]
-    rows = torch.arange(B, device=x.device)
-    at = position.clamp(0, S - 1)
-    cache_k[rows, at] = k[:, 0]
-    cache_v[rows, at] = v[:, 0]
+    if isinstance(cache_k, DTensor):
+        _write_rows(cache_k, k, position)
+        _write_rows(cache_v, v, position)
+        kc, vc = (_pin_cache(c) for c in (cache_k, cache_v))
+    else:
+        S = cache_k.shape[1]
+        rows = torch.arange(B, device=x.device)
+        at = position.clamp(0, S - 1)
+        cache_k[rows, at] = k[:, 0]
+        cache_v[rows, at] = v[:, 0]
+        kc, vc = cache_k, cache_v
+    ctx = attend_cache(q, kc, vc, position)
+    out = ctx.reshape(B, 1, n_heads * d_head) @ p["wo"].to(x.dtype)
+    return shard(out, "batch", None, "model"), cache_k, cache_v
 
-    kf = _expand_kv(cache_k, n_heads)
-    vf = _expand_kv(cache_v, n_heads)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(d_head)
-    valid = torch.arange(S, device=x.device)[None, :] <= position[:, None]
-    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
-    return ctx.reshape(B, 1, n_heads * d_head) @ p["wo"].to(x.dtype), cache_k, cache_v
+
+def attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 position: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One query a row against a cache: q (B,1,H,D), k/v (B,S,KV,D), keys
+    past ``position`` (B,) masked (None: none); the softmax in f32, as the
+    reference's decode.
+
+    On DTensors (k and v in one layout) the attention runs on each rank's
+    local rows, heads and cache positions, with q and the positions
+    brought to the same rows and heads; where the cache's sequence is
+    split (one long sequence over ``data``) the softmax's max and sum and
+    the context's partial sums are all-reduced over that axis."""
+    if not isinstance(k, DTensor):
+        return _attend(q, k, v, position, 0)
+    mesh, lay = k.device_mesh, list(k.placements)
+    row_lay = _rows_and_heads(lay)
+    pos = None if position is None else _onto(position, _rows(lay)).to_local()
+    seq_split = [(mesh, i) for i, pl in enumerate(lay) if isinstance(pl, Shard) and pl.dim == 1]
+    ctx = _attend(_onto(q, row_lay).to_local(), k.to_local(), v.to_local(), pos,
+                  _offset(k, 1), seq_split)
+    return DTensor.from_local(ctx, mesh, row_lay, run_check=False)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            position: Optional[torch.Tensor], key0: int, seq_split=()) -> torch.Tensor:
+    """``attend_cache`` on plain tensors whose keys start at global index
+    ``key0``; ``seq_split`` lists the mesh dims (``(mesh, dim)`` groups)
+    that split the keys, over which the softmax is reduced."""
+    H, D = q.shape[2], q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, _expand_kv(k, H)).float() / math.sqrt(D)
+    if position is not None:
+        keys = key0 + torch.arange(k.shape[1], device=k.device)
+        scores = scores.masked_fill(~(keys[None, :] <= position[:, None])[:, None, None, :],
+                                    float("-inf"))
+    if not seq_split:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, _expand_kv(v, H))
+    import torch.distributed._functional_collectives as funcol
+
+    top = scores.amax(dim=-1, keepdim=True)
+    for group in seq_split:
+        top = funcol.all_reduce(top, "max", group)
+    e = torch.exp(scores - top)
+    total = e.sum(dim=-1, keepdim=True)
+    for group in seq_split:
+        total = funcol.all_reduce(total, "sum", group)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", (e / total).to(q.dtype), _expand_kv(v, H))
+    for group in seq_split:
+        ctx = funcol.all_reduce(ctx, "sum", group)
+    return ctx
+
+
+def _rows_and_heads(placements) -> list:
+    """A cache's placements with its sequence (dim 1) whole: the layout of
+    one new row (B, 1, KV, D), or of a query."""
+    return [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+            for pl in placements]
+
+
+def _rows(placements) -> list:
+    """The placements of a (B,) tensor split as a cache's rows."""
+    return [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in placements]
+
+
+def _onto(t: torch.Tensor, placements) -> DTensor:
+    return t if list(t.placements) == list(placements) else t.redistribute(
+        t.device_mesh, placements)
+
+
+def _offset(t: DTensor, dim: int) -> int:
+    """The global index of this rank's first element of ``t`` along ``dim``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)[1][dim]
+
+
+def _write_rows(cache: DTensor, new: torch.Tensor, position: torch.Tensor) -> None:
+    """cache[b, min(position[b], S-1)] = new[b, 0], in place on each rank's
+    shard: the rows, heads and positions it holds."""
+    S = cache.shape[1]
+    local = cache.to_local()
+    nb, ns = local.shape[:2]
+    row = _onto(new, _rows_and_heads(cache.placements)).to_local()[:, 0]
+    pos = _onto(position, _rows(cache.placements)).to_local()
+    at = pos.clamp(0, S - 1) - _offset(cache, 1)
+    inside = (at >= 0) & (at < ns)
+    rows = torch.arange(nb, device=local.device)
+    at = at.clamp(0, ns - 1)
+    local[rows, at] = torch.where(inside[:, None, None], row, local[rows, at])
+
+
+def _pin_cache(cache: DTensor) -> DTensor:
+    """The reference's ``shard(cache, "batch", "seq_sp", "kv_heads", None)``:
+    the cache itself when it is laid out so, else a redistributed copy."""
+    mesh = cache.device_mesh
+    want = spec_to_placements(resolve(("batch", "seq_sp", "kv_heads", None), mesh,
+                                      shape=tuple(cache.shape)), mesh)
+    return _onto(cache, want)

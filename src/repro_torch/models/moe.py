@@ -1,8 +1,31 @@
 """Mixture-of-Experts layer (port of ``repro/models/moe.py``): top-k routing
-with capacity, on one device.
+with capacity, expert parallelism.
 
-The reference's single-device path, bit for bit in its semantics: the
-router runs in f32; ``top_k`` of the softmax, gates renormalized with a
+Two execution paths, as in the reference:
+
+* **the mesh path** (``_moe_mesh``, the reference's ``_moe_shard_map``),
+  taken when ``x`` is a DTensor on a ``DeviceMesh`` and the shapes fit:
+  tokens are split over every mesh axis (batch over pod/data, sequence
+  over model when the model axis divides it), each rank routes and packs
+  its own (E, C_loc, D) buffer, ``C_loc = max(8, ceil(cf·T_loc·K/E))``,
+  and when E divides the model axis one ``all_to_all`` pair over
+  ``model`` moves the rows to their experts' owners and back
+  (``all_to_all_single_autograd``: a ``_c10d_functional`` collective in
+  the forward and in the backward, which ``analysis.census`` counts by
+  axis).  Otherwise the experts are gathered whole onto every rank and
+  the layer sends nothing (decode's S = 1 goes this way).  The local
+  tensors join autograd through ``to_local``/``from_local``: the router's
+  and the replicated experts' local gradients are partial sums over the
+  axes that split the tokens, as the transpose of ``shard_map`` sums an
+  unmapped input's cotangent over the axes it varies along.
+  The reference decides from its ambient abstract mesh; the port from its
+  input, so a trace on the fx carrier (a dict mesh, plain tensors) keeps
+  the dense path with its three constraints, as the reference's jaxpr
+  does.
+* **the dense path** (no mesh, shapes that do not fit, the fx carrier):
+  the reference's single-device math, bit for bit in its semantics.
+
+The router runs in f32; ``top_k`` of the softmax, gates renormalized with a
 1e-9 floor; capacity ``max(8, int(capacity_factor·T·K/E))``; each route's
 position in its expert's queue from a cumsum over the token-major (T·K, E)
 one-hot; routes over capacity are dropped, clamped to slot C-1 with a zero
@@ -14,19 +37,22 @@ dropped rows carry zero cotangents).  The expert FFN is three batched
 products (``torch.bmm``), as the reference computes them with
 ``jnp.einsum`` outside any kernel.
 
-The reference's expert-parallel ``shard_map`` path needs a mesh; it waits
-for ROADMAP.md module queue, item 'Multi-device'.  Like the reference
-without a mesh, this module never takes it.
+The dense path pins the dispatch buffer and the experts' output to
+``("experts", "expert_cap", None)`` and its output to ``("batch", None,
+"model")`` (``parallel.sharding.shard``: nodes of a model-axis trace,
+redistributions on DTensors, the identity elsewhere).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.parallel import sharding as sh
 from .layers import init_normal
 
 
@@ -101,16 +127,97 @@ def _combine(out_e: torch.Tensor, eid: torch.Tensor, pos_c: torch.Tensor,
     return (gathered * weights[:, None]).reshape(T, K, D).sum(dim=1)
 
 
+def _local(w: torch.Tensor, mesh, spec: sh.Spec, grad_placements) -> torch.Tensor:
+    """``w`` laid out on ``mesh`` in ``spec``, as this rank's local tensor
+    whose gradient DTensor reads in ``grad_placements``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return sh.place(w, mesh, spec).to_local(grad_placements=grad_placements)
+
+
+def _all_to_all(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Split ``t``'s dim 0 into as many chunks as the model axis has ranks,
+    send chunk j to model rank j, stack what arrives along dim 0 in
+    source order (autograd: the same exchange of the cotangent)."""
+    import torch.distributed._functional_collectives as funcol
+
+    group = (mesh, mesh.mesh_dim_names.index("model"))
+    return funcol.all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+
+def _moe_mesh(p: Dict, x: torch.Tensor, cfg: MoEConfig) -> Optional[torch.Tensor]:
+    """Expert-parallel MoE on ``x``'s mesh (the reference's
+    ``_moe_shard_map``); None where the mesh or the shapes do not fit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    sizes = sh.axis_sizes_of(mesh)
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    tp = sizes.get("model", 1)
+    dp = math.prod(sizes[a] for a in dp_axes)
+    if (dp == 1 and tp == 1) or B % dp:
+        return None
+    seq_split = tp if (tp > 1 and S % tp == 0) else 1
+    ep = tp > 1 and E % tp == 0 and seq_split == tp  # the all_to_all layout
+    T_loc = (B // dp) * (S // seq_split)
+    C_loc = max(8, int(math.ceil(cfg.capacity_factor * T_loc * K / E)))
+
+    x_spec = (dp_axes or None, "model" if seq_split > 1 else None, None)
+    xd = sh.place(x, mesh, x_spec)
+    x_loc = xd.to_local()
+    # a weight's local gradient sums over the tokens of this rank's shard:
+    # a partial sum over the axes that split the tokens, whole over the
+    # others (an axis the tokens are replicated over computes it alike)
+    split = set(dp_axes) | ({"model"} if seq_split > 1 else set())
+    partial = [Partial() if n in split else Replicate() for n in mesh.mesh_dim_names]
+    router = _local(p["router"], mesh, (), partial)
+    e_spec = ("model", None, None) if ep else ()
+    e_grads = [Shard(0) if ep and n == "model" else g
+               for n, g in zip(mesh.mesh_dim_names, partial)]
+    experts = {k: _local(w, mesh, e_spec, e_grads) for k, w in p["experts"].items()}
+
+    b, s, _ = x_loc.shape
+    xt = x_loc.reshape(b * s, D)
+    gate_vals, expert_ids, _, _ = _route(router, xt, cfg)
+    disp, eid, pos_c, keep = _pack(xt, expert_ids, E, C_loc)
+    if ep:
+        # (E, C_loc, D) → (E/tp, tp·C_loc, D): each rank's rows travel to
+        # their experts' owner, concatenated along capacity in rank order
+        el = E // tp
+        disp = _all_to_all(disp, mesh).reshape(tp, el, C_loc, D).transpose(0, 1)
+        out = _expert_ffn(experts, disp.reshape(el, tp * C_loc, D))
+        out = out.reshape(el, tp, C_loc, D).transpose(0, 1)
+        out = _all_to_all(out, mesh).reshape(E, C_loc, D)
+    else:
+        out = _expert_ffn(experts, disp)
+    y = _combine(out, eid, pos_c, keep, gate_vals, b * s, K).reshape(b, s, D)
+    return DTensor.from_local(y, mesh, xd.placements, run_check=False)
+
+
 def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False):
     """x (B, S, D) → (B, S, D)[, {"lb_loss", "z_loss"}]."""
+    from torch.distributed.tensor import DTensor
+
+    if not return_aux and isinstance(x, DTensor):
+        y = _moe_mesh(p, x, cfg)
+        if y is not None:
+            return y
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
     gate_vals, expert_ids, logits, probs = _route(p["router"], xt, cfg)
     disp, eid, pos_c, keep = _pack(xt, expert_ids, E, capacity(cfg, T))
-    out_e = _expert_ffn(p["experts"], disp)
+    # experts over the model axis, or (where E does not divide it) the
+    # capacity rows: an unsharded dispatch buffer is large at scale
+    disp = sh.shard(disp, "experts", "expert_cap", None)
+    out_e = sh.shard(_expert_ffn(p["experts"], disp), "experts", "expert_cap", None)
     y = _combine(out_e, eid, pos_c, keep, gate_vals, T, K).reshape(B, S, D)
+    y = sh.shard(y, "batch", None, "model")
     if not return_aux:
         return y
     # Switch-style load-balance loss + router z-loss

@@ -13,6 +13,15 @@ each chunk's ops, and the plan decides what they recompute (ROADMAP.md §3).
 The xLSTM blocks: mLSTM runs the same chunked SSD with N = P = d_head;
 sLSTM's elementwise recurrence runs as a doubling scan (``linear_scan``),
 eager torch having no ``associative_scan``.
+
+The reference's sharding constraints (``parallel.sharding.shard``: nodes
+of a model-axis trace, redistributions on DTensors, the identity
+elsewhere): Mamba2's x-branch over ``ffn`` after its conv, so the SSD scan
+runs on H/tp heads (the fused in-projection, whose name the rules see as
+``w``, stays replicated, as in the reference); mLSTM's q, k and v over
+``heads``; each block's output made whole over ``model``.  Before a
+block's input projection the sequence-parallel residual is gathered
+(``layers.gather_sequence``), as the attention and MLP blocks do.
 """
 
 from __future__ import annotations
@@ -22,8 +31,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.configs.base import SSMConfig
-from .layers import checkpointed, init_normal, rmsnorm
+from repro_torch.parallel.sharding import shard
+from .layers import checkpointed, gather_sequence, init_normal, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +79,15 @@ def ssd_chunked(
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,S,H,P), final state (B,H,P,N) f32)."""
+    """Returns (y (B,S,H,P), final state (B,H,P,N) f32).
+
+    On DTensors split over the batch and the heads the scan runs on each
+    rank's local rows and heads (:func:`_ssd_local`): every (row, head)
+    recurs on its own."""
+    if h0 is None and any(isinstance(t, DTensor) for t in (x, a_log, Bm, Cm)):
+        out = _ssd_local(x, a_log, Bm, Cm, chunk)
+        if out is not None:
+            return out
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -81,6 +101,40 @@ def ssd_chunked(
                             Cm[:, c:c + Q])
         ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+def _ssd_local(x, a_log, Bm, Cm, chunk: int):
+    """``ssd_chunked`` on each rank's shard: every input laid out with the
+    batch and the heads as the most split of them splits them (a
+    replicated input is sliced, no collective), the scan run on the local
+    tensors, y and the final state returned as DTensors in that layout.
+    None when an input is split along its sequence or last dim, or holds
+    partial sums: the scan then runs on the DTensors themselves."""
+    mesh = next(t.device_mesh for t in (x, a_log, Bm, Cm) if isinstance(t, DTensor))
+    want = []
+    for i in range(mesh.ndim):
+        dims = set()
+        for t in (x, a_log, Bm, Cm):
+            if not isinstance(t, DTensor):
+                continue
+            pl = t.placements[i]
+            if isinstance(pl, Shard) and pl.dim in (0, 2):
+                dims.add(pl.dim)
+            elif not pl.is_replicate():
+                return None
+        if len(dims) > 1:
+            return None
+        want.append(Shard(dims.pop()) if dims else Replicate())
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, want).to_local()
+
+    y, h = ssd_chunked(*(local(t) for t in (x, a_log, Bm, Cm)), chunk)
+    h_pl = [Shard(1) if isinstance(pl, Shard) and pl.dim == 2 else pl for pl in want]
+    return (DTensor.from_local(y, mesh, want, run_check=False),
+            DTensor.from_local(h, mesh, h_pl, run_check=False))
 
 
 def ssd_step(
@@ -133,13 +187,35 @@ def _split_proj(zxbcdt: torch.Tensor, d_inner: int, N: int, H: int):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, x (B,S,C), w (K,C)."""
+    """Depthwise causal conv, x (B,S,C), w (K,C).  On a DTensor whose
+    sequence is whole, on each rank's rows and channels (``_conv_local``)."""
+    if isinstance(x, DTensor):
+        out = _conv_local(x, w)
+        if out is not None:
+            return out
     K, S = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))
     out = pad[:, :S, :] * w[0][None, None, :]
     for i in range(1, K):
         out = out + pad[:, i:i + S, :] * w[i][None, None, :]
     return out
+
+
+def _conv_local(x: DTensor, w: torch.Tensor) -> Optional[DTensor]:
+    """The conv on this rank's rows and channels of ``x``, ``w`` sliced to
+    those channels; None when the sequence is split or ``x`` holds partial
+    sums.  ``w``'s local gradient sums this rank's rows: a partial sum over
+    the axes that split the rows, whole over the others."""
+    mesh, pl = x.device_mesh, list(x.placements)
+    if not all(p.is_replicate() or (isinstance(p, Shard) and p.dim in (0, 2)) for p in pl):
+        return None
+    w_pl = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else Replicate() for p in pl]
+    w_grad = [Partial() if isinstance(p, Shard) and p.dim == 0 else q
+              for p, q in zip(pl, w_pl)]
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    w_loc = w.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    return DTensor.from_local(_causal_conv(x.to_local(), w_loc), mesh, pl, run_check=False)
 
 
 def _ssd_inputs(p: Dict, dt: torch.Tensor, xs: torch.Tensor, H: int, P: int):
@@ -156,10 +232,10 @@ def mamba2_apply(p: Dict, x: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
     dt_ = x.dtype
     d_inner, H, P = mamba2_sizes(D, cfg)
     N = cfg.d_state
-    h = rmsnorm(p["norm"]["scale"], x)
+    h = gather_sequence(rmsnorm(p["norm"]["scale"], x))
     z, xs, Bm, Cm, dt = _split_proj(h @ p["in_proj"]["w"].to(dt_), d_inner, N, H)
     xs = _causal_conv(xs, p["conv_w"].to(dt_))
-    xs = F.silu(xs.float()).to(dt_)
+    xs = shard(F.silu(xs.float()).to(dt_), "batch", None, "ffn")  # the scan on H/tp heads
     xh, a_log = _ssd_inputs(p, dt, xs, H, P)
     Bh = Bm[:, :, None, :].expand(B, S, H, N)
     Ch = Cm[:, :, None, :].expand(B, S, H, N)
@@ -167,7 +243,7 @@ def mamba2_apply(p: Dict, x: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
     y = y + xs.reshape(B, S, H, P) * p["D_skip"][None, None, :, None].to(dt_)
     y = y.reshape(B, S, d_inner) * F.silu(z.float()).to(dt_)
     y = rmsnorm(p["norm_out"]["scale"], y)
-    return x + y @ p["out_proj"]["w"].to(dt_)
+    return x + shard(y @ p["out_proj"]["w"].to(dt_), "batch", None, "model")
 
 
 def mamba2_init_state(batch: int, d_model: int, cfg: SSMConfig,
@@ -243,17 +319,18 @@ def mlstm_apply(p: Dict, x: torch.Tensor, n_heads: int, chunk: int) -> torch.Ten
     dt_ = x.dtype
     H = n_heads
     Dh = D // H
-    h = rmsnorm(p["norm"]["scale"], x)
-    q = (h @ p["wq"].to(dt_)).reshape(B, S, H, Dh)
-    k = (h @ p["wk"].to(dt_)).reshape(B, S, H, Dh) * (Dh**-0.5)
-    v = (h @ p["wv"].to(dt_)).reshape(B, S, H, Dh)
+    h = gather_sequence(rmsnorm(p["norm"]["scale"], x))
+    q = shard((h @ p["wq"].to(dt_)).reshape(B, S, H, Dh), "batch", None, "heads", None)
+    k = shard((h @ p["wk"].to(dt_)).reshape(B, S, H, Dh), "batch", None, "heads", None)
+    v = shard((h @ p["wv"].to(dt_)).reshape(B, S, H, Dh), "batch", None, "heads", None)
+    k = k * (Dh**-0.5)
     i_gate, a_log = _mlstm_gates(p, h, H)
     ig = i_gate[..., None].to(dt_)
     y, _ = ssd_chunked(v * ig, a_log, k, q, chunk)  # state (B,H,Dh_v,Dh_k)
     nrm, _ = ssd_chunked(ig, a_log, k, q, chunk)  # (B,S,H,1)
     y = y / torch.clamp(nrm.abs(), min=1.0)
     y = rmsnorm(p["out_norm"]["scale"], y.reshape(B, S, D))
-    return x + y @ p["wo"].to(dt_)
+    return x + shard(y @ p["wo"].to(dt_), "batch", None, "model")
 
 
 def mlstm_init_state(batch: int, d_model: int, n_heads: int) -> Dict[str, torch.Tensor]:
@@ -326,12 +403,12 @@ def _slstm_gates(p: Dict, h: torch.Tensor):
 def slstm_apply(p: Dict, x: torch.Tensor) -> torch.Tensor:
     """sLSTM: elementwise gated recurrence by a parallel scan (O(S log S))."""
     dt_ = x.dtype
-    h = rmsnorm(p["norm"]["scale"], x)
+    h = gather_sequence(rmsnorm(p["norm"]["scale"], x))
     z, i, f, o = _slstm_gates(p, h)
     c = linear_scan(f, i * z)  # zero initial state
     n = torch.clamp(linear_scan(f, i), min=1e-6)
     y = (o * c / n).to(dt_)
-    return x + y @ p["wo"].to(dt_)
+    return x + shard(y @ p["wo"].to(dt_), "batch", None, "model")
 
 
 def slstm_init_state(batch: int, d_model: int) -> Dict[str, torch.Tensor]:

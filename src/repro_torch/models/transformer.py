@@ -31,7 +31,13 @@ Decode (``init_caches``/``decode_step``) keeps the reference's cache tree:
 Mamba2 ``ssm`` state in f32 and ``conv`` in the activation dtype; xLSTM's
 ``b{i}_mlstm: {"C", "n"}`` and ``b{i}_slstm: {"c", "n"}``, in f32.  Each
 unit decodes on its own slices (views) and writes its new state there in
-place.
+place.  On a mesh (DTensor parameters and caches, ``serving.Engine(mesh=)``)
+the same code runs on DTensors: a unit's slice of a cache is a view of
+each rank's shard, each recurrent state is written back in its cache's
+layout, and an attention block writes and attends on its rank's shard
+(``attention.decode_attention``).  Every family runs on a model axis:
+the reference's constraints of the MoE, Mamba2, xLSTM and whisper blocks
+come with their modules.
 """
 
 from __future__ import annotations
@@ -46,8 +52,9 @@ from repro_torch.configs.base import ModelConfig, SSMConfig
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from repro_torch.parallel.sharding import shard
-from .layers import checkpointed, embed, init_normal, rmsnorm, softmax_xent, swiglu, unembed
+from repro_torch.parallel.sharding import like, shard
+from .layers import (checkpointed, embed, gather_sequence, init_normal, rmsnorm, softmax_xent,
+                     swiglu, unembed)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +232,7 @@ class _Recurrent(nn.Module):
                position: torch.Tensor) -> torch.Tensor:
         h, new = self.step(_tree(getattr(self, self.kind)), h, cache)
         for key, t in new.items():
-            cache[key].copy_(t)
+            cache[key].copy_(like(t, cache[key]))
         return h
 
 
@@ -294,7 +301,8 @@ class SharedAttn(nn.Module):
         self.mlp = SwiGLU(d, cfg.d_ff, device, generator)
 
     def _in(self, h: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-        return self.ln(torch.cat([h, h0], dim=-1)) @ self.in_proj.w.to(h.dtype)
+        x = torch.cat([gather_sequence(h), h0], dim=-1)
+        return self.ln(x) @ self.in_proj.w.to(h.dtype)
 
     def forward(self, h: torch.Tensor, h0: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
@@ -394,7 +402,6 @@ class LM(nn.Module):
         embeddings (F = 0 without it)."""
         dt = self.cfg.activation_dtype
         h = embed(self.embedding.embed, tokens, dt)
-        only_dense_on_model_axis(h, self.pattern)
         if extra_embeds is not None:
             h = torch.cat([extra_embeds.to(dt), h], dim=1)
         h = shard(h, "batch", None, "model")
@@ -483,19 +490,6 @@ class LM(nn.Module):
                       if self.has_shared else None)
             h = unit.decode(h, views, position, h0, self.shared_attn, shared)
         return self._logits(h), caches
-
-
-def only_dense_on_model_axis(x: torch.Tensor, kinds: Sequence[str]) -> None:
-    """The dense ``attn_mlp`` family alone runs on a model axis: the other
-    families' constraints (expert parallelism, the SSM and xLSTM state
-    layouts, whisper's) come later."""
-    from repro_torch.parallel.sharding import model_parallel
-
-    if model_parallel(x) and any(k != "attn_mlp" for k in kinds):
-        from repro_torch.core.lowering.base import not_ported
-
-        raise not_ported(f"the {'/'.join(sorted(set(kinds)))} family on a model axis",
-                         "Multi-device")
 
 
 def default_segments(n_units: int) -> Tuple[int, ...]:

@@ -12,7 +12,14 @@ encoder's (non-causal), the decoder's self-attention (causal) and, unlike
 the reference, which calls ``dense_attention`` there, the decoder's
 cross-attention (non-causal, Sq ≠ Sk; the same function, ROADMAP.md §3).
 One-query cross-attention in ``decode_step`` stays plain, as
-``decode_attention`` does.
+``decode_attention`` does (``attention.attend_cache``: on DTensors, on
+each rank's shard of the cross K/V).
+
+On a mesh the reference's four constraints hold the residual: whole over
+``model`` after each side's embedding, sequence-parallel at each layer's
+end; the cross-attention's q, K/V and context split their heads over
+``model`` (the flash op runs on head shards) and its output is made whole,
+as ``Attention`` does.
 
 Param tree: the reference's (``enc_pos``, ``encoder``, ``enc_norm``,
 ``embedding``, ``dec_pos``, ``decoder``, ``dec_norm``, ``head``), with
@@ -34,8 +41,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention
 from . import attention as attn
-from .layers import embed, gelu_mlp, init_normal, layernorm, softmax_xent, unembed
-from .transformer import Attention, _params, only_dense_on_model_axis, scan_over_segments
+from repro_torch.parallel.sharding import shard
+from .layers import (embed, gather_sequence, gelu_mlp, init_normal, layernorm, softmax_xent,
+                     unembed)
+from .transformer import Attention, _params, scan_over_segments
 
 MAX_DEC_POS = 65_536
 
@@ -71,7 +80,7 @@ class EncoderLayer(nn.Module):
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         h = h + self.attn(self.ln1(h), positions, causal=False)
-        return h + self.mlp(self.ln2(h))
+        return shard(h + self.mlp(self.ln2(h)), "batch", "seq_act", None)
 
 
 class DecoderLayer(nn.Module):
@@ -90,18 +99,22 @@ class DecoderLayer(nn.Module):
         c, p = self.cfg, self.cross_attn
         B, T, _ = enc_out.shape
         dt = enc_out.dtype
+        enc_out = gather_sequence(enc_out)
         k = (enc_out @ p.wk.to(dt)).reshape(B, T, c.n_kv_heads, c.head_dim)
         v = (enc_out @ p.wv.to(dt)).reshape(B, T, c.n_kv_heads, c.head_dim)
-        return k, v
+        return (shard(k, "batch", None, "kv_heads", None),
+                shard(v, "batch", None, "kv_heads", None))
 
     def cross(self, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
               attend) -> torch.Tensor:
         """x (B, S, D) queries against the encoder's K/V through ``attend``."""
         c, p = self.cfg, self.cross_attn
         B, S, _ = x.shape
-        q = (x @ p.wq.to(x.dtype)).reshape(B, S, c.n_heads, c.head_dim)
-        ctx = attend(q, xk, xv)
-        return ctx.reshape(B, S, c.n_heads * c.head_dim) @ p.wo.to(x.dtype)
+        q = (gather_sequence(x) @ p.wq.to(x.dtype)).reshape(B, S, c.n_heads, c.head_dim)
+        ctx = shard(attend(shard(q, "batch", None, "heads", None), xk, xv),
+                    "batch", None, "heads", None)
+        out = ctx.reshape(B, S, c.n_heads * c.head_dim) @ p.wo.to(x.dtype)
+        return shard(out, "batch", None, "model")
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor,
                 enc_out: torch.Tensor) -> torch.Tensor:
@@ -109,13 +122,12 @@ class DecoderLayer(nn.Module):
         xk, xv = self.enc_kv(enc_out)
         h = h + self.cross(self.ln_x(h), xk, xv,
                            lambda q, k, v: flash_attention(q, k, v, causal=False))
-        return h + self.mlp(self.ln2(h))
+        return shard(h + self.mlp(self.ln2(h)), "batch", "seq_act", None)
 
     def decode(self, h: torch.Tensor, self_cache: Dict[str, torch.Tensor],
                cross: Dict[str, torch.Tensor], position: torch.Tensor) -> torch.Tensor:
         h = h + self.self_attn.decode(self.ln1(h), self_cache, position)
-        h = h + self.cross(self.ln_x(h), cross["xk"], cross["xv"],
-                           lambda q, k, v: attn.dense_attention(q, k, v, causal=False))
+        h = h + self.cross(self.ln_x(h), cross["xk"], cross["xv"], attn.attend_cache)
         return h + self.mlp(self.ln2(h))
 
 
@@ -155,8 +167,7 @@ class WhisperModel(nn.Module):
         """frames (B, T, D): the precomputed conv-frontend output (stub)."""
         dt = self.cfg.activation_dtype
         T = frames.shape[1]
-        h = frames.to(dt) + self.enc_pos[:T].to(dt)[None]
-        only_dense_on_model_axis(h, ["whisper"])
+        h = shard(frames.to(dt) + self.enc_pos[:T].to(dt)[None], "batch", None, "model")
         positions = torch.arange(T, device=h.device)[None, :]
         h = scan_over_segments(h, self.encoder, lambda layer, x: layer(x, positions),
                                segment_sizes, segment_remat)
@@ -170,6 +181,7 @@ class WhisperModel(nn.Module):
         dt = self.cfg.activation_dtype
         S = tokens.shape[1]
         h = embed(self.embedding.embed, tokens, dt) + self.dec_pos[:S].to(dt)[None]
+        h = shard(h, "batch", None, "model")
         positions = torch.arange(S, device=h.device)[None, :]
         h = scan_over_segments(h, self.decoder,
                                lambda layer, x: layer(x, positions, enc_out),

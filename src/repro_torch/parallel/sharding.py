@@ -743,6 +743,16 @@ def _broadcast_spec(src: Any, out_shape: Tuple[int, ...], spec_of) -> Spec:
     return tuple(out)
 
 
+def like(t: Any, ref: Any) -> Any:
+    """``t`` in ``ref``'s DTensor placements (redistributed where they
+    differ); ``t`` itself when ``ref`` is no DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(ref, DTensor) or list(t.placements) == list(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
 def place(t: Any, mesh: Any, spec: Spec) -> Any:
     """``t`` on ``mesh`` in ``spec``'s placements: a DTensor is
     redistributed (a no-op in those placements already), a plain tensor is

@@ -272,10 +272,14 @@ def test_engine_matches_reference(engine_setup, temperature):
 
 
 def test_engine_raises_for_what_is_not_ported(engine_setup):
+    """Sharded decode is ported (``tests/test_torch_sharded_decode.py``);
+    what it cannot serve on raises ``ValueError``, as ``Trainer(mesh=)``
+    does: an ``{axis: size}`` dict (it prices bytes, it holds no ranks),
+    and shardings without a mesh."""
     _, _, model = engine_setup
-    for kw, item in ((dict(mesh=object()), "Multi-device"),
-                     (dict(step_shardings=object()), "Multi-device")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, match in ((dict(mesh={"data": 2, "model": 2}), "DeviceMesh"),
+                      (dict(step_shardings=(None, None, None, None)), "needs mesh=")):
+        with pytest.raises(ValueError, match=match):
             Engine(model, max_slots=1, max_seq=8, **kw)
 
 
@@ -320,8 +324,9 @@ def test_plan_scoring_gives_plan_functions_twin(engine_setup):
     (l0, g0), (l1, g1) = twin(params, x), direct(params, x)
     assert torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
     assert direct.lowered_for(params, x).report.replayed_seconds == report.replayed_seconds
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        eng.plan_scoring(fn, None, in_shardings=object())(params, x)
+    # without a mesh the engine's twin is the meshless one; on a mesh
+    # (tests/test_torch_sharded_decode.py) it is plan_function(mesh=, in_shardings=)'s
+    assert eng.mesh is None
 
 
 def test_train_then_serve():

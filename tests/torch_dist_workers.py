@@ -28,9 +28,12 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def spawn(case: str, world: int, tmp: Path, inputs: Dict[str, np.ndarray],
-          deadline: float = DEADLINE) -> List[Dict[str, np.ndarray]]:
+          deadline: float = DEADLINE, meanwhile: Callable[[], object] = None
+          ) -> List[Dict[str, np.ndarray]]:
     """Run ``case`` on ``world`` gloo ranks; returns each rank's results.
-    Fails (AssertionError) on a rank's error or at the deadline."""
+    ``meanwhile`` (the parent's reference computations) runs while the
+    ranks do.  Fails (AssertionError) on a rank's error or at the
+    deadline."""
     tmp = Path(tmp)
     (tmp / "store").unlink(missing_ok=True)  # a FileStore must start empty
     np.savez(tmp / "in.npz", **inputs)
@@ -41,6 +44,8 @@ def spawn(case: str, world: int, tmp: Path, inputs: Dict[str, np.ndarray],
              for r in range(world)]
     end = time.monotonic() + deadline
     try:
+        if meanwhile is not None:
+            meanwhile()
         for p in procs:
             p.wait(timeout=max(0.0, end - time.monotonic()))
     except subprocess.TimeoutExpired:
@@ -673,19 +678,204 @@ def case_model_axis(inp, rank, world):
 
     out["compress_raises"] = np.array(raises(lambda: trainer(compress_grads=True),
                                              "compress_grads on sharded parameters"))
-    moe_cfg = dataclasses.replace(reduced(get_config("granite-moe-3b-a800m")), dtype="float32")
-    moe = build_model(moe_cfg, device="cpu")
-    out["moe_raises"] = np.array(raises(
-        lambda: Trainer(loss_fn, moe, TrainConfig(log_every=0, total_steps=1), device="cpu",
-                        mesh=mesh).train_step({k: torch.as_tensor(v) for k, v in SyntheticLM(
-                            DataConfig(moe_cfg.vocab_size, seq, batch, num_hosts=2,
-                                       host_id=data_rank)).batch(0).items()}),
-        "family on a model axis"))
+    # GQA whose one KV head the model axis does not divide (the reduced
+    # granite): q's heads split, k's and v's whole
+    gqa_cfg = dataclasses.replace(reduced(get_config("granite-moe-3b-a800m")), dtype="float32")
+    gqa = build_model(gqa_cfg, device="cpu")
+    out["gqa_raises"] = np.array(raises(
+        lambda: Trainer(loss_fn, gqa, TrainConfig(log_every=0, total_steps=1), device="cpu",
+                        mesh=mesh, in_shardings=(specs.param_shardings(
+                            gqa_cfg, mesh, dict(gqa.named_parameters())), None)).train_step(
+            {k: torch.as_tensor(v) for k, v in SyntheticLM(
+                DataConfig(gqa_cfg.vocab_size, seq, batch, num_hosts=2,
+                           host_id=data_rank)).batch(0).items()}),
+        "differing layouts"))
+
+    # every other family on the model axis: loss and grads on its specs'
+    # layout and this rank's slice of the global batch; one Trainer step
+    # there and its per-device parameter + AdamW bytes
+    for arch in [str(a) for a in inp["family_archs"]]:
+        fcfg = _family_config(arch)
+        fm = build_model(fcfg, device="cpu")
+        fm.load_state_dict({k[len(f"{arch}:p:"):]: torch.tensor(v) for k, v in inp.items()
+                            if k.startswith(f"{arch}:p:")}, strict=True)
+        named = dict(fm.named_parameters())
+        layout = specs.param_shardings(fcfg, mesh, named)
+        ffn, fparams = functional_loss(loss_fn, fm)
+        fd = {k: sh.place(v.detach(), mesh, sh.normalize_spec(layout[k[len("model."):]], mesh,
+                                                               v.dim())).requires_grad_()
+              for k, v in fparams.items()}
+        half = len(inp[f"{arch}:b:tokens"]) // 2
+        rows = slice(data_rank * half, (data_rank + 1) * half)
+        local = {k[len(f"{arch}:b:"):]: torch.tensor(v[rows]) for k, v in inp.items()
+                 if k.startswith(f"{arch}:b:")}
+        fb = {k: DTensor.from_local(v, mesh, [Shard(0), Replicate()], run_check=False)
+              for k, v in local.items()}
+        layouts.local_q.clear()
+        with on_mesh(list(fd.values())):
+            floss = ffn(fd, fb)
+            fgrads = torch.autograd.grad(floss, list(fd.values()))
+        out[f"{arch}:loss"] = _full(floss)
+        for k, g in zip(fd, fgrads):
+            out[f"{arch}:g:{k[len('model.'):]}"] = _full(g)
+        out[f"{arch}:flash_local_heads"] = np.array(sorted({q[1] for q in layouts.local_q}))
+        tr = Trainer(loss_fn, fm, TrainConfig(log_every=0, total_steps=1, optimizer=opt),
+                     device="cpu", mesh=mesh, in_shardings=(layout, None))
+        res = tr.train_step(local)
+        out[f"{arch}:trainer_loss"] = np.array(res["loss"])
+        out[f"{arch}:state_bytes"] = np.array(3 * sum(p.to_local().numel() * 4
+                                                      for p in tr.params))
+        out[f"{arch}:specs_state_bytes"] = np.array(specs.state_bytes_per_device(
+            fcfg, sh.axis_sizes_of(mesh)))
+        out[f"{arch}:model_sharded_leaves"] = np.array(sum(
+            1 for p in tr.params if not p.placements[1].is_replicate()))
+        for axis, ops in tr.comm_by_axis.items():
+            for op, rec in ops.items():
+                out[f"{arch}:comm:{axis}:{op}"] = np.array(rec["payload_bytes"])
+    return out
+
+
+def case_expert_parallel(inp, rank, world):
+    """The MoE layer on ``{data: 2, model: 2}`` for each case of the test:
+    its output and the gradients of ``sum(y · cot)`` (full values), and the
+    collectives its forward and backward send, by mesh axis."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.analysis.census import CountCollectives
+    from repro_torch.configs import MoEConfig
+    from repro_torch.core.lowering.base import on_mesh
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.parallel import sharding as sh
+
+    mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    out: Dict[str, np.ndarray] = {}
+    for case in [str(c) for c in inp["cases"]]:
+        E, K, F_, cf = inp[f"{case}:moe"].tolist()
+        cfg = MoEConfig(num_experts=int(E), top_k=int(K), d_ff_expert=int(F_),
+                        capacity_factor=cf)
+        x = torch.tensor(inp[f"{case}:x"])
+        cot = torch.tensor(inp[f"{case}:cot"])
+        B, S, _ = x.shape
+        # the layer's own token layout (batch over data, the sequence over
+        # model where each divides), so no collective enters at its boundary
+        x_spec = ("data" if B % 2 == 0 else None, "model" if S % (world // 2) == 0 else None,
+                  None)
+        xd = sh.place(x, mesh, x_spec).requires_grad_()
+        params = {"router": torch.tensor(inp[f"{case}:router"])}
+        params["experts"] = {k: torch.tensor(inp[f"{case}:{k}"])
+                             for k in ("w_gate", "w_up", "w_down")}
+        pd = {"router": sh.place(params["router"], mesh, ()).requires_grad_(),
+              "experts": {k: sh.place(w, mesh, sh.drop_indivisible(
+                  ("model", None, None), tuple(w.shape), {"model": world // 2})
+              ).requires_grad_() for k, w in params["experts"].items()}}
+        leaves = [xd, pd["router"], *pd["experts"].values()]
+        with CountCollectives() as counted, on_mesh(leaves):
+            y = moe_apply(pd, xd, cfg)
+            grads = torch.autograd.grad(y, leaves, sh.place(cot, mesh, sh.normalize_spec(y)))
+        out[f"{case}:y"] = _full(y)
+        for name, g in zip(("x", "router", "w_gate", "w_up", "w_down"), grads):
+            out[f"{case}:g:{name}"] = _full(g)
+        for axis, ops in counted.by_axis(mesh).items():
+            for op, rec in ops.items():
+                out[f"{case}:comm:{axis}:{op}:calls"] = np.array(rec["calls"])
+                out[f"{case}:comm:{axis}:{op}:payload"] = np.array(rec["payload_bytes"])
+        out[f"{case}:y_placements"] = np.array(str(list(y.placements)))
+    return out
+
+
+def _family_config(arch: str, **changes):
+    """The reduced f32 config of ``arch`` (granite with 2 KV heads, so that
+    the model axis of 2 divides them), as the tests build the reference's."""
+    from repro_torch.configs import get_config, reduced
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32", **changes)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, n_kv_heads=2)
+    return cfg
+
+
+def case_sharded_decode(inp, rank, world):
+    """``Engine(mesh=, step_shardings=)`` on ``{data: 2, model: 2}`` for each
+    family: every request's tokens and every step's full logits; the cache
+    layouts; a one-slot engine whose caches split their sequence over
+    ``data``; ``plan_scoring(in_shardings=)`` against ``plan_function``."""
+    import torch
+    import torch.utils._pytree as pytree
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    import repro_torch
+    from repro_torch.analysis.census import CountCollectives
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import PlanCache, Planner
+    from repro_torch.launch.steps import decode_shardings
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine
+
+    mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    out: Dict[str, np.ndarray] = {}
+    slots, max_seq, new = int(inp["slots"]), int(inp["max_seq"]), int(inp["new_tokens"])
+    prompts = [[int(t) for t in p if t >= 0] for p in inp["prompts"]]
+
+    def serve(tag, arch, n_slots, prompts_):
+        cfg = _family_config(arch)
+        model = build_model(cfg, device="cpu")
+        model.load_state_dict({k[len(f"{arch}:p:"):]: torch.tensor(v) for k, v in inp.items()
+                               if k.startswith(f"{arch}:p:")}, strict=True)
+        shape = ShapeConfig("decode", max_seq, n_slots, "decode")
+        frames = inp.get(f"{arch}:frames")
+        eng = Engine(model, max_slots=n_slots, max_seq=max_seq, frames=frames, mesh=mesh,
+                     step_shardings=decode_shardings(cfg, shape, mesh))
+        for prompt in prompts_:
+            eng.submit(prompt, max_new_tokens=new)
+        with CountCollectives() as counted:
+            eng.step()
+        logits = [eng.last_logits]
+        while eng.pending or any(r is not None for r in eng.slot_req):
+            eng.step()
+            logits.append(eng.last_logits)
+        done = eng.completed
+        out[f"{tag}:tokens"] = np.array([t for q in sorted(done, key=lambda q: q.uid)
+                                         for t in [q.uid, *q.output, -1]])
+        out[f"{tag}:logits"] = np.stack(logits)
+        out[f"{tag}:params_sharded"] = np.array(sum(
+            1 for p in model.parameters() if any(isinstance(pl, Shard) for pl in p.placements)))
+        out[f"{tag}:step_collectives"] = np.array(counted.total())
+        return eng
+
+    for arch in [str(a) for a in inp["archs"]]:
+        eng = serve(arch, arch, slots, prompts)
+        # every cache leaf keeps the rows of its data rank: (L, B, ...) dim 1
+        out[f"{arch}:cache_rows_split"] = np.array(all(
+            t.placements[0] == Shard(1) and t.to_local().shape[1] == slots // 2
+            for t in pytree.tree_leaves(eng.caches)))
+    # one slot, one long sequence: the caches split their sequence over data
+    eng = serve("long", "stablelm-3b", 1, prompts[:2])
+    out["long:cache_seq_split"] = np.array(all(
+        t.placements[0] == Shard(2) and t.to_local().shape[2] == max_seq // 2
+        for t in pytree.tree_leaves(eng.caches)))
+
+    # plan_scoring on the engine's mesh: plan_function(mesh=, in_shardings=)'s twin
+    params = [torch.tensor(inp[f"w{i}"]) for i in range(3)]
+    x = torch.tensor(inp["x"])
+    specs_ = (None, ("data", None))
+    twin = eng.plan_scoring(_mlp, None, in_shardings=specs_,
+                            planner=Planner(cache=PlanCache()))
+    direct = repro_torch.plan_function(_mlp, None, mesh=mesh, in_shardings=specs_,
+                                       objective="wallclock", planner=Planner(cache=PlanCache()))
+    got, want = twin(params, x), direct(params, x)
+    out["scoring_bitwise"] = np.array(_bits(got, want))
+    out["scoring_loss"] = _full(got[0])
+    for i, g in enumerate(got[1]):
+        out[f"scoring_g{i}"] = _full(g)
     return out
 
 
 CASES = {"sharding": case_sharding, "planning": case_planning, "train": case_train,
-         "model_axis": case_model_axis}
+         "model_axis": case_model_axis,
+         "expert_parallel": case_expert_parallel, "sharded_decode": case_sharded_decode}
 
 
 def main() -> None:
