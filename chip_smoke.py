@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-cuts   # the front doors' size cuts, timed
+    python3 chip_smoke.py --gqa-designs # the GQA shards' two local designs, timed
 
 Phases (each prints its lines; a failing phase makes the script exit
 non-zero and print no result):
 
+0. (before phase build) the dry run's full-depth cells of two configs one
+             card cannot hold start on ``{data: 16, model: 16}``, each in a
+             subprocess (``PRODUCTION_DRYRUNS``: qwen3-moe-30b-a3b at
+             train_4k, mistral-large-123b at decode_32k with ``ws``);
 1. build   — compile the flash-attention kernels from the sources with nvcc;
              print each kernel's registers, spills and its count of wgmma
              (HGMMA) and TMA-load (UTMALDG) instructions from
@@ -31,6 +36,10 @@ non-zero and print no result):
              yardsticks (``scaled_dot_product_attention`` for the forward,
              aten's flash backward for dq and dk/dv together; never used by
              the port) as device time, replayed from a CUDA graph;
+2b. production_dryrun — the dry-run cells started before phase build,
+             collected before any phase that prints a host-clock step time:
+             status ``ok``, exit 0, parameters and AdamW a device exactly
+             ``launch.specs.state_bytes_per_device``, bytes and ``trace_s``;
 3. launcher — ``repro_torch.launch.train`` at full stablelm-3b width for 3
              steps (batch 2, seq 1024), budgeted from the card's memory,
              with the launch counts of the three kernels over the run, under
@@ -80,6 +89,17 @@ non-zero and print no result):
              ``launch.specs`` (FSDP: its forced layout's); then
              the per-device state of qwen2.5-14b, qwen3-moe-30b-a3b and
              mistral-large-123b on ``{data: 16, model: 16}`` (meta device);
+9b. production — the production meshes (after phase axis_serve): the
+             kernels at the GQA shards the model axis brings (mistral-large
+             on 16 ranks, qwen3-moe on 8: each rank's q heads over local
+             copies of its own KV head), held and timed; eight gloo
+             processes sharing the card on ``{data: 1, model: 8}`` running
+             qwen3-moe-30b-a3b (4 KV heads) at full width, 2 units (the
+             first rematerialized), f32, against one process, their step-1
+             collectives against the shapes' count and their launches; the
+             same cell's dry run on a fake group of 8 ranks (collectives
+             equal, memory estimate within 0.75-1.25 of the real peak); the
+             card's memory against ``launch.mesh.H100_HBM_BYTES``;
 10. analysis — the analysis layer on phase planned's workload: the effect
              pass (the 8 flash nodes opaque and pinned, nothing else
              tainted); ``plan_function(analyze_effects=True, verify=True,
@@ -141,6 +161,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -180,6 +201,29 @@ GRANITE_AXIS_DECODE_TOKENS = 8
 AXIS_SERVE_FAMILIES = (("zamba2-2.7b", 6), ("xlstm-1.3b", 8), ("whisper-small", 2))
 AXIS_SERVE_FAMILY_STEPS = 2
 AXIS_SERVE_FAMILY_DTYPES = ("bfloat16", "float32")
+# phase production: eight gloo processes sharing the card on {data: 1,
+# model: 8} (the smallest mesh on which a full-width config's KV heads, 4,
+# do not divide the model axis), qwen3-moe-30b-a3b at full width and this
+# depth in f32 on a global batch of 1 x 1024, two Trainer steps on a plan
+# of one-unit segments, the first rematerialized; the same cell's dry run
+# on a fake group of 8 ranks, its rank-0 memory estimate held to this
+# band of the real rank 0's peak
+PRODUCTION_ARCH = "qwen3-moe-30b-a3b"
+PRODUCTION_MESH = {"data": 1, "model": 8}
+PRODUCTION_UNITS = 2
+PRODUCTION_REMAT = (True, False)
+PRODUCTION_SEQ, PRODUCTION_BATCH, PRODUCTION_STEPS = 1024, 1, 2
+PRODUCTION_MEMORY_BAND = (0.75, 1.25)
+# phase production_dryrun: the dry run's full-depth cells of configs one
+# card cannot hold on {data: 16, model: 16}, each in a process of its own,
+# started before phase build (beside the compiler and the kernels'
+# device-timed cases) and collected after phase kernels, before any phase
+# that prints a host-clock step time.  qwen2.5-14b's and mistral-large's
+# train_4k cells (traces of 68.4-79.2 s and 223.7 s on the card's host)
+# are left out for the script's time limit
+PRODUCTION_DRYRUNS = (("qwen3-moe-30b-a3b", "train_4k", ()),
+                      ("mistral-large-123b", "decode_32k", ("ws",)))
+PRODUCTION_DRYRUN_TIMEOUT = 300
 SERVE_ARGS = ["--full", "--requests", "16", "--slots", "8", "--max-seq", "2048",
               "--new-tokens", "64"]
 TEACHER_TOKENS = 128
@@ -261,6 +305,23 @@ KERNEL_CASES = [
     # of 12 heads, one clip)
     ("granite_axis", 1, 12, 4, 1024, 1024, 64, "bfloat16", True),
     ("whisper_enc_axis", 1, 6, 6, 1500, 1500, 64, "bfloat16", False),
+]
+# phase production: one rank's shard of the GQA attentions whose KV heads
+# the model axis does not divide, each rank's q heads over as many local
+# copies of its own KV head (``kernels.ops.kv_to_q_heads``: MHA):
+# mistral-large-123b's on {model: 16} at train_4k (96 q over 8 KV heads,
+# one sequence of 4096) and qwen3-moe-30b-a3b's on {model: 8} (32 over 4,
+# one of 1024)
+PRODUCTION_KERNEL_CASES = [
+    ("mistral_axis", 1, 6, 6, 4096, 4096, 128, "bfloat16", True),
+    ("qwen3_axis", 1, 4, 4, 1024, 1024, 128, "bfloat16", True),
+]
+# ``--gqa-designs``: the same shards with the local call left GQA, k and v
+# repeated to lcm(KV, m) heads only (one KV head a rank), the design the
+# MHA call replaced; timed beside PRODUCTION_KERNEL_CASES in one process
+GQA_DESIGN_CASES = [
+    ("mistral_axis_gqa", 1, 6, 1, 4096, 4096, 128, "bfloat16", True),
+    ("qwen3_axis_gqa", 1, 4, 1, 1024, 1024, 128, "bfloat16", True),
 ]
 # the cases timed beside their bounds and library calls: the dense path's
 # (whose numbers fill the kernels JSON line) and each model family's
@@ -469,101 +530,111 @@ def phase_build():
 
 def phase_kernels(results):
     import torch
-    import torch.nn.functional as F
 
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    ref = importlib.import_module("repro_torch.kernels.ref")
-    dev = torch.device("cuda")
-    for ci, (name, B, H, KV, Sq, Sk, D, dtn, causal) in enumerate(KERNEL_CASES):
-        dt = getattr(torch, dtn)
-        g = torch.Generator(device=dev).manual_seed(ci)
-        q = torch.randn(B, H, Sq, D, device=dev, dtype=dt, generator=g)
-        k = torch.randn(B, KV, Sk, D, device=dev, dtype=dt, generator=g)
-        v = torch.randn(B, KV, Sk, D, device=dev, dtype=dt, generator=g)
-        do = torch.randn(B, H, Sq, D, device=dev, dtype=dt, generator=g)
-        c = dict(causal=causal)
-
-        o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v, **c)
-        o, lse = fa.flash_attention_fwd(q, k, v, **c)
-        delta = ref.row_delta(o_ref, do)
-        dq_ref = ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do, **c)
-        dq = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
-        dk_ref, dv_ref = ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do, **c)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do, **c)
-        torch.cuda.synchronize()
-
-        tol, rtol = TOL[dtn], RTOL[dtn]
-        errs = {}
-        for kname, pairs in (("flash_fwd", [("out", o, o_ref)]),
-                             ("flash_bwd_dq", [("dq", dq, dq_ref)]),
-                             ("flash_bwd_dkv", [("dk", dk, dk_ref), ("dv", dv, dv_ref)])):
-            errs[kname] = max(compare(name, tname, a, b, tol, rtol) for tname, a, b in pairs)
-        lse_err = (lse - lse_ref).abs().max().item()
-        print(f"[kernels] {name:10s} lse max_abs_err {lse_err:.3e} (limit {LSE_TOL:g})")
-        check(lse_err <= LSE_TOL, f"flash_fwd lse disagrees on {name}")
-        if name not in TIMED_CASES:
-            continue
-
-        # a training path's shape: times, bounds and the library yardstick
-        bounds = attention_bounds(B, H, KV, Sq, Sk, D, dtn, causal)
-        timed = {
-            "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, **c),
-                          lambda: ref.attention_with_lse_ref(q, k, v, **c)),
-            "flash_bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c),
-                             lambda: ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do,
-                                                              **c)),
-            "flash_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do,
-                                                                 **c),
-                              lambda: ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do,
-                                                                **c)),
-        }
-        dq2 = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
-        torch.cuda.synchronize()
-        print(f"[kernels] {name:10s} dq bitwise equal over two calls: {torch.equal(dq, dq2)}")
-        check(torch.equal(dq, dq2), "flash_bwd_dq is not deterministic")
-        lib_fwd, fwd_label = library_forward_ms(q, k, v, causal)
-        if KV == H:
-            lib_bwd, lib_bwd_method = sdpa_backward_ms(q, k, v, do, causal)
-            bwd_label = BWD_LIBRARY
-        else:  # aten's flash backward takes no GQA: k and v repeated to H heads
-            rep = H // KV
-            lib_bwd, lib_bwd_method = sdpa_backward_ms(
-                q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), do, causal)
-            bwd_label = BWD_LIBRARY + f", on k and v repeated to {H} heads"
-        library = {"flash_fwd": (lib_fwd, fwd_label),
-                   "flash_bwd_dq": (lib_bwd, bwd_label),
-                   "flash_bwd_dkv": (lib_bwd, bwd_label)}
-        ms_of = {}
-        for kname, (kern, plain) in timed.items():
-            bound, bound_by, flops, nbytes = bounds[kname]
-            entry = {
-                "name": kname, "route": "cuda", "source": SOURCE[kname],
-                "replaces": REPLACES[kname], "launches": 0,
-                "max_abs_err": errs[kname], "ms": device_ms(kern),
-                "plain_ms": device_ms(plain, iters=5), "bound_ms": bound,
-                "bound_by": bound_by,
-                "library_ms": library[kname][0], "library": library[kname][1],
-            }
-            if name == "path":
-                results[kname] = entry
-            else:  # another model's shape, kept beside the path's entry
-                results[kname][name] = {k: entry[k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            launched = time_ms(kern)
-            print(f"[kernels] {name:10s} {kname:14s} {entry['ms']:.4f} ms (host-launched "
-                  f"{launched:.4f} ms)  plain {entry['plain_ms']:.4f} ms"
-                  f"  bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB)  library {entry['library_ms']}  achieved "
-                  f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s, {bound / entry['ms']:.3f} of bound")
-            ms_of[kname] = entry["ms"]
-        print(f"[kernels] {name:10s} library forward {fwd_label}: {lib_fwd:.4f} ms; library "
-              f"backward {bwd_label}: {lib_bwd:.4f} ms by {lib_bwd_method}; "
-              f"flash_bwd_dq + flash_bwd_dkv {ms_of['flash_bwd_dq'] + ms_of['flash_bwd_dkv']:.4f} ms")
+    for ci, case in enumerate(KERNEL_CASES):
+        kernel_case(results, ci, case, case[0] in TIMED_CASES)
     for name in TIMED_CASES:
         check_model_layout(len(KERNEL_CASES), name)
     # cuBLAS keeps a workspace for each stream that ran a matmul, the timing
     # streams' too; drop them so that the launcher's peak memory is its own
     torch._C._cuda_clearCublasWorkspaces()
+
+
+def kernel_case(results, ci: int, case: tuple, timed: bool) -> None:
+    """One ``KERNEL_CASES`` entry: each kernel against its plain version
+    (inputs from seed ``ci``); with ``timed``, each kernel, its plain
+    version and the library's yardsticks timed beside its bound, into
+    ``results`` (the path's entry, or another shape's beside it)."""
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    ref = importlib.import_module("repro_torch.kernels.ref")
+    dev = torch.device("cuda")
+    name, B, H, KV, Sq, Sk, D, dtn, causal = case
+    dt = getattr(torch, dtn)
+    g = torch.Generator(device=dev).manual_seed(ci)
+    q = torch.randn(B, H, Sq, D, device=dev, dtype=dt, generator=g)
+    k = torch.randn(B, KV, Sk, D, device=dev, dtype=dt, generator=g)
+    v = torch.randn(B, KV, Sk, D, device=dev, dtype=dt, generator=g)
+    do = torch.randn(B, H, Sq, D, device=dev, dtype=dt, generator=g)
+    c = dict(causal=causal)
+
+    o_ref, lse_ref = ref.attention_with_lse_ref(q, k, v, **c)
+    o, lse = fa.flash_attention_fwd(q, k, v, **c)
+    delta = ref.row_delta(o_ref, do)
+    dq_ref = ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do, **c)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
+    dk_ref, dv_ref = ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do, **c)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do, **c)
+    torch.cuda.synchronize()
+
+    tol, rtol = TOL[dtn], RTOL[dtn]
+    errs = {}
+    for kname, pairs in (("flash_fwd", [("out", o, o_ref)]),
+                         ("flash_bwd_dq", [("dq", dq, dq_ref)]),
+                         ("flash_bwd_dkv", [("dk", dk, dk_ref), ("dv", dv, dv_ref)])):
+        errs[kname] = max(compare(name, tname, a, b, tol, rtol) for tname, a, b in pairs)
+    lse_err = (lse - lse_ref).abs().max().item()
+    print(f"[kernels] {name:10s} lse max_abs_err {lse_err:.3e} (limit {LSE_TOL:g})")
+    check(lse_err <= LSE_TOL, f"flash_fwd lse disagrees on {name}")
+    if not timed:
+        return
+
+    # a training path's shape: times, bounds and the library yardstick
+    bounds = attention_bounds(B, H, KV, Sq, Sk, D, dtn, causal)
+    timed = {
+        "flash_fwd": (lambda: fa.flash_attention_fwd(q, k, v, **c),
+                      lambda: ref.attention_with_lse_ref(q, k, v, **c)),
+        "flash_bwd_dq": (lambda: fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c),
+                         lambda: ref.attention_bwd_dq_ref(q, k, v, lse_ref, delta, do,
+                                                          **c)),
+        "flash_bwd_dkv": (lambda: fa.flash_attention_bwd_dkv(q, k, v, lse_ref, delta, do,
+                                                             **c),
+                          lambda: ref.attention_bwd_dkv_ref(q, k, v, lse_ref, delta, do,
+                                                            **c)),
+    }
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, lse_ref, delta, do, **c)
+    torch.cuda.synchronize()
+    print(f"[kernels] {name:10s} dq bitwise equal over two calls: {torch.equal(dq, dq2)}")
+    check(torch.equal(dq, dq2), "flash_bwd_dq is not deterministic")
+    lib_fwd, fwd_label = library_forward_ms(q, k, v, causal)
+    if KV == H:
+        lib_bwd, lib_bwd_method = sdpa_backward_ms(q, k, v, do, causal)
+        bwd_label = BWD_LIBRARY
+    else:  # aten's flash backward takes no GQA: k and v repeated to H heads
+        rep = H // KV
+        lib_bwd, lib_bwd_method = sdpa_backward_ms(
+            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), do, causal)
+        bwd_label = BWD_LIBRARY + f", on k and v repeated to {H} heads"
+    library = {"flash_fwd": (lib_fwd, fwd_label),
+               "flash_bwd_dq": (lib_bwd, bwd_label),
+               "flash_bwd_dkv": (lib_bwd, bwd_label)}
+    ms_of = {}
+    for kname, (kern, plain) in timed.items():
+        bound, bound_by, flops, nbytes = bounds[kname]
+        entry = {
+            "name": kname, "route": "cuda", "source": SOURCE[kname],
+            "replaces": REPLACES[kname], "launches": 0,
+            "max_abs_err": errs[kname], "ms": device_ms(kern),
+            "plain_ms": device_ms(plain, iters=5), "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": library[kname][0], "library": library[kname][1],
+        }
+        if name == "path":
+            results[kname] = entry
+        else:  # another model's shape, kept beside the path's entry
+            results[kname][name] = {k: entry[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        launched = time_ms(kern)
+        print(f"[kernels] {name:10s} {kname:14s} {entry['ms']:.4f} ms (host-launched "
+              f"{launched:.4f} ms)  plain {entry['plain_ms']:.4f} ms"
+              f"  bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)  library {entry['library_ms']}  achieved "
+              f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s, {bound / entry['ms']:.3f} of bound")
+        ms_of[kname] = entry["ms"]
+    print(f"[kernels] {name:10s} library forward {fwd_label}: {lib_fwd:.4f} ms; library "
+          f"backward {bwd_label}: {lib_bwd:.4f} ms by {lib_bwd_method}; "
+          f"flash_bwd_dq + flash_bwd_dkv {ms_of['flash_bwd_dq'] + ms_of['flash_bwd_dkv']:.4f} ms")
 
 
 def library_forward_ms(q, k, v, causal=True):
@@ -600,7 +671,8 @@ def check_model_layout(seed: int, case: str = "path") -> None:
 
     ops = importlib.import_module("repro_torch.kernels.ops")
     ref = importlib.import_module("repro_torch.kernels.ref")
-    _, B, H, KV, Sq, Sk, D, dtn, causal = next(c for c in KERNEL_CASES if c[0] == case)
+    _, B, H, KV, Sq, Sk, D, dtn, causal = next(
+        c for c in KERNEL_CASES + PRODUCTION_KERNEL_CASES + GQA_DESIGN_CASES if c[0] == case)
     dev, dt = torch.device("cuda"), getattr(torch, dtn)
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(B, S, n, D, device=dev, dtype=dt, generator=g)
@@ -1084,8 +1156,10 @@ def torchrun(nproc: int, args: list, timeout: float = 600, module: str = "repro_
         # the error lines, not the warnings (``W1017 12:00:00...``)
         errs = [ln for ln in proc.stderr.splitlines()
                 if not ln.split("]:", 1)[-1].startswith("W") and "Warning" not in ln]
+        # the first failing rank's own lines, then the launcher's summary
+        ranked = [ln for ln in errs if ln.startswith("[rank")]
         raise PhaseError(f"torchrun {' '.join(args)} exited {proc.returncode}:\n"
-                         f"{proc.stdout[-3000:]}\n" + "\n".join(errs[-80:]))
+                         f"{proc.stdout[-3000:]}\n" + "\n".join(ranked[:60] + errs[-30:]))
     out = json.loads(lines[-1][len("summary: "):])
     group = [ln for ln in proc.stdout.splitlines() if ln.startswith("process group: ")]
     out["process_group"] = group[0][len("process group: "):] if group else None
@@ -2089,6 +2163,335 @@ def phase_axis_serve(results):
         for name in fa.KERNELS:
             results[name].setdefault("axis_serve_launches", {})[arch] = [
                 r[arch]["bfloat16"]["launches"][name] for r in ranks]
+    check(not failures, "; ".join(failures))
+
+
+def production_setup(dev):
+    """qwen3-moe-30b-a3b at full width, ``PRODUCTION_UNITS`` deep, in f32,
+    weights from seed 0 on ``dev`` (every process draws the same), the
+    cell's shape and its first ``PRODUCTION_STEPS`` batches (the whole
+    global batch: the data axis has one rank)."""
+    import dataclasses
+
+    import torch
+
+    configs = importlib.import_module("repro_torch.configs")
+    data = importlib.import_module("repro_torch.data")
+    models = importlib.import_module("repro_torch.models")
+    cfg = dataclasses.replace(configs.get_config(PRODUCTION_ARCH), n_layers=PRODUCTION_UNITS,
+                              dtype="float32")
+    model = models.build_model(cfg, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    shape = configs.ShapeConfig("production", PRODUCTION_SEQ, PRODUCTION_BATCH, "train")
+    stream = data.SyntheticLM(data.DataConfig(cfg.vocab_size, PRODUCTION_SEQ, PRODUCTION_BATCH))
+    return cfg, model, shape, [stream.batch(i) for i in range(PRODUCTION_STEPS)]
+
+
+def production_plan() -> dict:
+    """The cell's segment plan: one unit a segment, ``PRODUCTION_REMAT``."""
+    return {"segment_sizes": (1,) * PRODUCTION_UNITS, "segment_remat": PRODUCTION_REMAT}
+
+
+def production_collectives(cfg, model_sharded_leaves: int) -> dict:
+    """Phase production's first-step collectives of a rank by mesh axis and
+    kind, ``[calls, payload bytes]``, worked out from the shapes: L units,
+    R of them rematerialized (R' of those after the first), B_l sequences
+    of S tokens a rank, d_model D, m-way model axis, A = B_l·S·D
+    activations, G = B_l·S·KV·d_head (k's or v's elements), T =
+    B_l·(S/m)·D (a sequence shard); f32.  The data axis has one rank and
+    sends nothing.  A recomputed unit sends its forward's collectives
+    again.
+
+    * all-reduce, 7L + R + 5 calls: A each for the vocab shards' embedding
+      rows, the gradient of the vocab-split head's input, and in each unit
+      the attention's output projection (again in a recomputed unit) and
+      the gradient of its q, k and v projections' input; 3 of B_l·(S−1),
+      the vocab-split loss's max, sum of exponentials and gold logit; in
+      each unit the dk and dv sums over the ranks that share a KV head
+      (``kernels.ops.kv_to_q_heads``), G each, and the router's gradient,
+      D·E; 2L − 1 norm scales' gradients, D each; one f32 a model-sharded
+      leaf, the clip's norm.
+    * all-gather, 4L + 2R + R' + 2 calls: in each unit the k and v
+      projections' columns (KV·d_head, which the axis divides while it does
+      not divide the KV heads) before the head reshape, G/m each; each
+      MoE's output gathered from its sequence shards where the next unit or
+      the head reads it, T (again where a recomputed unit reads the one
+      before it); in the backward one cotangent a unit and two more at its
+      end, T each.
+    * all-to-all, 4L + 2R calls: each MoE layer's (E, C_loc, D) buffer
+      twice in the forward and twice in the backward, T_loc = B_l·S/m
+      tokens a rank, C_loc = max(8, ceil(cf·T_loc·K/E)).
+
+    The counts are those the same code sent on a fake group of 8 CPU ranks
+    at L 1-3, every remat pattern of R 0-3 and B_l 2-3, where the formula
+    held exactly."""
+    L, D = cfg.n_layers, cfg.d_model
+    R, R_after = sum(PRODUCTION_REMAT), sum(PRODUCTION_REMAT[1:])
+    m, S = PRODUCTION_MESH["model"], PRODUCTION_SEQ
+    Bl = PRODUCTION_BATCH // PRODUCTION_MESH["data"]
+    A, G, T = Bl * S * D, Bl * S * cfg.n_kv_heads * cfg.head_dim, Bl * (S // m) * D
+    moe = cfg.moe
+    c_loc = max(8, math.ceil(moe.capacity_factor * Bl * S // m * moe.top_k / moe.num_experts))
+    buf = moe.num_experts * c_loc * D
+    return {"model": {
+        "all_reduce": [7 * L + R + 5, 4 * ((2 + 2 * L + R) * A + 3 * Bl * (S - 1)
+                                           + L * (2 * G + D * moe.num_experts)
+                                           + (2 * L - 1) * D + model_sharded_leaves)],
+        "all_gather_into_tensor": [4 * L + 2 * R + R_after + 2,
+                                   4 * ((L + R) * 2 * (G // m) + (2 * L + 2 + R_after) * T)],
+        "all_to_all_single": [4 * L + 2 * R, 4 * (4 * L + 2 * R) * buf],
+    }}
+
+
+def production_worker(out_dir: Path) -> int:
+    """One of phase production's processes (under ``torch.distributed.run``):
+    the mesh over the gloo group sharing the card, the cell's Trainer from
+    ``launch.steps.build_train_step``, two steps; a ``summary:`` line (rank
+    0) and ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    steps = importlib.import_module("repro_torch.launch.steps")
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=300))
+    route_gloo_cuda_collectives()
+    rank = dist.get_rank()
+    if rank == 0:
+        print(f"process group: gloo, {dist.get_world_size()} ranks sharing 1 card", flush=True)
+    mesh = init_device_mesh("cuda", tuple(PRODUCTION_MESH.values()),
+                            mesh_dim_names=tuple(PRODUCTION_MESH))
+    heads, fwd = [], fa.flash_attention_fwd
+
+    def counted_fwd(q, k, *a, **kw):
+        heads.append((int(q.shape[1]), int(k.shape[1])))
+        return fwd(q, k, *a, **kw)
+
+    fa.flash_attention_fwd = counted_fwd
+    dev = torch.device("cuda")
+    # the processes draw the weights on the card and lay out their Trainers'
+    # shards in turn (a Trainer's layout sends nothing), each dropping its
+    # whole copy before the next: eight whole copies would not fit the card
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            cfg, model, shape, batches = production_setup(dev)
+            step = steps.build_train_step(cfg, shape, mesh, n_micro=1, **production_plan())[0]
+            tr = step.trainer(model, device="cuda")
+            del model
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses, seconds, peak = [], [], None
+    for b in batches:
+        t0 = time.perf_counter()
+        res = tr.train_step({k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(res["loss"])
+        peak = peak or torch.cuda.max_memory_allocated()  # step 1's
+    out = {"rank": rank, "losses": losses, "step_seconds": seconds,
+           "launches": dict(fa.LAUNCHES), "heads": sorted(set(heads)),
+           "comm": {axis: {op: [rec["calls"], rec["payload_bytes"]] for op, rec in ops.items()}
+                    for axis, ops in tr.comm_by_axis.items()},
+           "step1_peak_bytes": peak, "resident_bytes": resident,
+           "state_bytes": 3 * sum(p.to_local().numel() * p.to_local().element_size()
+                                  for p in tr.params),
+           "model_sharded_leaves": sum(1 for p in tr.params if not p.placements[1].is_replicate())}
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    if rank == 0:
+        print("summary: " + json.dumps({"ranks": dist.get_world_size()}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_production(results):
+    """The production meshes' path on the card.  The three kernels at the
+    GQA shards the model axis brings (each rank's q heads over local copies
+    of its own KV head), held and timed; eight gloo processes sharing the
+    card on ``{data: 1, model: 8}`` running qwen3-moe-30b-a3b (4 KV heads,
+    which the axis does not divide) at full width, 2 units, the first
+    rematerialized, f32: two Trainer steps against one process's on the
+    same weights and batches, routing the same token shards (run after the
+    eight), the kernels on the local head shards and their launches, step
+    1's collectives by axis against the shapes' count
+    (:func:`production_collectives`), each process's peak; the same cell
+    traced by the dry run on a fake group of 8 ranks, whose rank-0
+    collectives must equal the real rank 0's op for op and byte for byte,
+    and whose memory estimate must lie within ``PRODUCTION_MEMORY_BAND`` of
+    its peak."""
+    import tempfile
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    train = importlib.import_module("repro_torch.train")
+    steps = importlib.import_module("repro_torch.launch.steps")
+    mesh_mod = importlib.import_module("repro_torch.launch.mesh")
+    dryrun = importlib.import_module("repro_torch.launch.dryrun")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[production] the card's total_memory {total} B; launch.mesh.H100_HBM_BYTES "
+          f"{mesh_mod.H100_HBM_BYTES} B, the dry run's default budget")
+    check(total == mesh_mod.H100_HBM_BYTES, "the card's memory is not H100_HBM_BYTES")
+    t0 = time.perf_counter()
+    for ci, case in enumerate(PRODUCTION_KERNEL_CASES):
+        kernel_case(results, len(KERNEL_CASES) + 1 + ci, case, True)
+        check_model_layout(len(KERNEL_CASES) + 1 + ci, case[0])
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    print(f"[production] kernels at the GQA shards in {time.perf_counter() - t0:.1f} s")
+
+    world = math.prod(PRODUCTION_MESH.values())
+    out_dir = Path(tempfile.mkdtemp())
+    t0 = time.perf_counter()
+    run = torchrun(world, ["--production-worker", str(out_dir)], module=None, timeout=600)
+    print(f"[production] {world} processes ({run['process_group']!r}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check((run["process_group"] or "").startswith("gloo"), "the processes did not take gloo")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+    # one process, no mesh, the same weights and batches, routing the
+    # tokens in the shards the ranks route them in (each with its capacity)
+    dev = torch.device("cuda")
+    cfg, model, shape, batches = production_setup(dev)
+    step = steps.build_train_step(cfg, shape, {"data": 1, "model": 1}, n_micro=1,
+                                  **production_plan())[0]
+    moe = importlib.import_module("repro_torch.models.moe")
+    apply, moe.moe_apply = moe.moe_apply, per_shard_moe(PRODUCTION_MESH["data"],
+                                                        PRODUCTION_MESH["model"])
+    try:
+        tr = train.Trainer(step.loss, model, train.TrainConfig(total_steps=PRODUCTION_STEPS,
+                                                               log_every=0), device="cuda")
+        single = tr.run(iter(batches))
+    finally:
+        moe.moe_apply = apply
+    del tr, model
+    torch.cuda.empty_cache()
+    print(f"[production] {PRODUCTION_ARCH} one process, per-shard routing: losses "
+          f"{single['losses']}")
+    m = PRODUCTION_MESH["model"]
+    # each rank's q heads over as many copies of its one KV head
+    want_heads = [[cfg.n_heads // m, cfg.n_heads // m]]
+    recomputed = sum(PRODUCTION_REMAT)
+    want_launches = {"flash_fwd": PRODUCTION_STEPS * (cfg.n_layers + recomputed),
+                     "flash_bwd_dq": PRODUCTION_STEPS * cfg.n_layers,
+                     "flash_bwd_dkv": PRODUCTION_STEPS * cfg.n_layers}
+    for r in ranks:
+        worst = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], single["losses"]))
+        print(f"[production] rank {r['rank']}: losses {r['losses']} (worst relative gap "
+              f"{worst:.3e}); step seconds {[round(t, 4) for t in r['step_seconds']]}; "
+              f"(q, kv) heads {r['heads']}; launches {json.dumps(r['launches'])}; step 1 peak "
+              f"{r['step1_peak_bytes']} B; resident {r['resident_bytes']} B; parameters + "
+              f"AdamW {r['state_bytes']} B; step 1 collectives (calls, payload B) {r['comm']}")
+        check(worst < 1e-4, f"rank {r['rank']}'s losses differ from one process's beyond 1e-4")
+        check(r["heads"] == want_heads, f"rank {r['rank']}'s kernels got heads {r['heads']}")
+        check(r["launches"] == want_launches, f"rank {r['rank']}'s Trainer launched "
+              f"{r['launches']}, not {want_launches} ({PRODUCTION_STEPS} steps of "
+              f"{cfg.n_layers} units, {recomputed} recomputed)")
+        want = production_collectives(cfg, r["model_sharded_leaves"])
+        check(r["comm"] == want, f"rank {r['rank']}'s step 1 collectives {r['comm']} differ "
+              f"from the shapes' {want}")
+    print(f"[production] step 1 collectives of each rank (calls, payload B) equal the "
+          f"shapes' count {production_collectives(cfg, ranks[0]['model_sharded_leaves'])}; "
+          f"launches of each rank {want_launches}")
+    for name in fa.KERNELS:
+        results[name]["production_launches"] = [r["launches"][name] for r in ranks]
+
+    # the same cell on a fake group: rank 0's collectives and memory
+    t0 = time.perf_counter()
+    with mesh_mod.fake_group(world):
+        fake = mesh_mod.make_fake_mesh(tuple(PRODUCTION_MESH.values()), tuple(PRODUCTION_MESH),
+                                       device_type="cuda")
+        rec = dryrun.trace_cell(cfg, shape, fake, totals=False, n_micro=1,
+                                **production_plan())
+    fake_comm = {axis: {op: [v["calls"], v["payload_bytes"]] for op, v in ops.items()}
+                 for axis, ops in rec["collectives_by_axis"].items()}
+    estimate = rec["temp_size_in_bytes"] + rec["argument_size_in_bytes"]
+    real = ranks[0]["step1_peak_bytes"]
+    ratio = estimate / real
+    print(f"[production] dry run of the cell on a fake group of {world} ranks "
+          f"({time.perf_counter() - t0:.1f} s): collectives {fake_comm}; equal to the real "
+          f"rank 0's: {fake_comm == ranks[0]['comm']}; arguments "
+          f"{rec['argument_size_in_bytes']} B + temp {rec['temp_size_in_bytes']} B = "
+          f"{estimate} B against the real rank 0's step-1 peak {real} B: ratio {ratio:.4f}")
+    check(fake_comm == ranks[0]["comm"], "the dry run's collectives differ from the real "
+          "rank 0's")
+    check(PRODUCTION_MEMORY_BAND[0] <= ratio <= PRODUCTION_MEMORY_BAND[1],
+          f"the dry run's memory estimate is {ratio:.4f} of the real peak")
+
+
+def start_production_dryruns(state, out_dir: Path) -> None:
+    """``python -m repro_torch.launch.dryrun`` for each of
+    ``PRODUCTION_DRYRUNS`` (configs one card cannot hold, on the
+    single-pod production mesh, at full depth), each in a process of its
+    own, logged to ``out_dir``; ``state["dryruns"]`` holds them."""
+    runs = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    for arch, shape_name, opts in PRODUCTION_DRYRUNS:
+        log = out_dir / f"dryrun_{arch}_{shape_name}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape_name, "--mesh", "single"] + (["--opts", ",".join(opts)] if opts else [])
+        with open(log, "w") as f:
+            runs.append((arch, shape_name, opts, log, time.perf_counter(), subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)))
+    state["dryruns"] = runs
+    print(f"[production_dryrun] started {len(runs)} dry-run cells side by side", flush=True)
+
+
+def phase_production_dryrun(state):
+    """The dry run's ``PRODUCTION_DRYRUNS`` cells, started before phase
+    build: each exits 0 with status ``ok``; a train cell's parameters and
+    AdamW moments a device are ``specs.state_bytes_per_device`` exactly;
+    per-device bytes and ``trace_s`` printed."""
+    specs = importlib.import_module("repro_torch.launch.specs")
+    configs = importlib.import_module("repro_torch.configs")
+    mesh_mod = importlib.import_module("repro_torch.launch.mesh")
+    sizes = dict(zip(mesh_mod.SINGLE_POD[1], mesh_mod.SINGLE_POD[0]))
+    failures = []
+    for arch, shape_name, opts, log, started, proc in state.pop("dryruns"):
+        try:
+            rc = proc.wait(timeout=max(1.0, started + PRODUCTION_DRYRUN_TIMEOUT
+                                       - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failures.append(f"{arch} {shape_name}: not done in {PRODUCTION_DRYRUN_TIMEOUT} s")
+            continue
+        wall = time.perf_counter() - started
+        lines = [ln for ln in log.read_text().splitlines() if ln.startswith("{")]
+        rec = json.loads(lines[-1]) if lines else {"status": "no record"}
+        tag = f"{arch} {shape_name}" + (f" opts {','.join(opts)}" if opts else "")
+        if rc != 0 or rec.get("status") != "ok":
+            print(f"[production_dryrun] {tag}: exit {rc}, status {rec.get('status')}:\n"
+                  + log.read_text()[-3000:])
+            failures.append(f"{tag}: exit {rc}")
+            continue
+        parts = rec["argument_bytes"]
+        print(f"[production_dryrun] {tag}: trace_s {rec['trace_s']} (process {wall:.1f} s); "
+              f"a device: arguments {rec['argument_size_in_bytes']} B {parts}, temp "
+              f"{rec['temp_size_in_bytes']} B, output {rec['output_size_in_bytes']} B; "
+              f"collectives a device {rec['collectives']['total_bytes_per_chip']} B "
+              f"{rec['collectives']['bytes_per_chip']}; global FLOPs "
+              f"{rec['jaxpr_flops_global']:.4e}, bytes {rec['jaxpr_bytes_global']:.4e}"
+              + (f"; plan: n_micro {rec['n_micro']}, segments {len(rec['segment_sizes'])}, "
+                 f"remat {sum(rec['segment_remat'])}" if "n_micro" in rec else ""))
+        if shape_name.startswith("train"):
+            want = specs.state_bytes_per_device(configs.get_config(arch), sizes)
+            state_bytes = parts["params"] + parts["opt_state"]
+            print(f"[production_dryrun] {tag}: parameters + AdamW {state_bytes} B a device "
+                  f"against specs.state_bytes_per_device {want} B")
+            if state_bytes != want:
+                failures.append(f"{tag}: state bytes {state_bytes} != {want}")
     check(not failures, "; ".join(failures))
 
 
@@ -3291,6 +3694,7 @@ def main() -> int:
     phases = [
         ("build", phase_build),
         ("kernels", lambda: phase_kernels(results)),
+        ("production_dryrun", lambda: phase_production_dryrun(state)),
         ("launcher", lambda: phase_launcher(results, state)),
         ("witness", lambda: phase_witness(state)),
         ("profile", lambda: phase_profile(state)),
@@ -3299,6 +3703,7 @@ def main() -> int:
         ("mesh", lambda: phase_mesh(results, state)),
         ("model_axis", lambda: phase_model_axis(results)),
         ("axis_serve", lambda: phase_axis_serve(results)),
+        ("production", lambda: phase_production(results)),
         ("analysis", lambda: phase_analysis(results, state)),
         ("strategies", lambda: phase_strategies(results)),
         ("costs", lambda: phase_costs(results)),
@@ -3310,14 +3715,23 @@ def main() -> int:
         ("whisper", lambda: phase_whisper(results)),
         ("vision", lambda: phase_vision(results)),
     ]
-    for name, fn in phases:
-        t0 = time.perf_counter()
-        try:
-            fn()
-        except Exception as e:  # report the phase, then fail the run
-            print(f"[{name}] FAILED: {type(e).__name__}: {e}")
-            return 1
-        print(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
+    t_all = time.perf_counter()
+    try:
+        start_production_dryruns(state, Path(tempfile.mkdtemp()))
+        for name, fn in phases:
+            t0 = time.perf_counter()
+            try:
+                fn()
+            except Exception as e:  # report the phase, then fail the run
+                print(f"[{name}] FAILED: {type(e).__name__}: {e}")
+                return 1
+            print(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
+    finally:  # stop the dry-run processes of a run that failed before reading them
+        for *_, proc in state.pop("dryruns", []):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[phases] ok in {time.perf_counter() - t_all:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3359,11 +3773,52 @@ def time_cuts() -> int:
     return 0
 
 
+def gqa_designs() -> int:
+    """``--gqa-designs``: the three kernels at phase production's GQA shards
+    in the two designs of ``kernels.ops.kv_to_q_heads``, in one process:
+    the local call as MHA (``PRODUCTION_KERNEL_CASES``, the design taken)
+    and as GQA over one KV head (``GQA_DESIGN_CASES``), each beside its
+    bound; and the device time of each design's local repeat of k (the
+    forward's ``index_select``) and sum of dk into KV heads (the backward's
+    ``index_add_``).  Not part of the run."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {k: {} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    phase_build()
+    dev = torch.device("cuda")
+    for ci, (mha, gqa) in enumerate(zip(PRODUCTION_KERNEL_CASES, GQA_DESIGN_CASES)):
+        for case in (mha, gqa):
+            kernel_case(results, len(KERNEL_CASES) + 1 + ci, case, True)
+        B, H, S, D = mha[1], mha[2], mha[4], mha[6]
+        k = torch.randn(B, S, 1, D, device=dev, dtype=torch.bfloat16)
+        for name, heads in ((mha[0], H), (gqa[0], gqa[3])):
+            idx = torch.zeros(heads, dtype=torch.long, device=dev)
+            g = torch.randn(B, S, heads, D, device=dev, dtype=torch.bfloat16)
+            rep_ms = device_ms(lambda: k.index_select(2, idx))
+            sum_ms = device_ms(lambda: g.new_zeros((B, S, 1, D)).index_add_(2, idx, g))
+            ms = {kn: results[kn][name]["ms"] for kn in results}
+            print(f"[gqa_designs] {name}: fwd {ms['flash_fwd']:.4f} ms, dq "
+                  f"{ms['flash_bwd_dq']:.4f} ms, dk/dv {ms['flash_bwd_dkv']:.4f} ms, total "
+                  f"{sum(ms.values()):.4f} ms; k's local repeat to {heads} heads "
+                  f"{rep_ms:.4f} ms, dk's sum into its KV head {sum_ms:.4f} ms (each once for "
+                  f"k and once for v in a layer)", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--model-axis-worker"]:  # one of phase model_axis's processes
         sys.exit(model_axis_worker(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--axis-serve-worker"]:  # one of phase axis_serve's processes
         sys.exit(axis_serve_worker(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--production-worker"]:  # one of phase production's processes
+        sys.exit(production_worker(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--time-cuts"]:
         sys.exit(time_cuts())
+    if sys.argv[1:2] == ["--gqa-designs"]:
+        sys.exit(gqa_designs())
     sys.exit(main())

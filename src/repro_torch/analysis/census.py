@@ -149,11 +149,23 @@ def _group_size(group_name: Any) -> int:
     return _resolve_process_group(group_name).size()
 
 
+#: The reference's HLO names of the collectives (``hlo_text.COLLECTIVES``)
+#: for the ``_c10d_functional`` ops
+HLO_NAMES = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "broadcast": "broadcast",
+}
+
+
 class CountCollectives(TorchDispatchMode):
     """Counts the ``_c10d_functional`` collectives dispatched while active:
-    ``stats[op] = {"calls", "payload_bytes", "wire_bytes"}`` per rank, and
-    the same split by process group (``by_group[group_name][op]``;
-    :meth:`by_axis` names a mesh's groups by their mesh dims)."""
+    ``stats[op] = {"calls", "payload_bytes", "output_bytes",
+    "wire_bytes"}`` per rank, and the same split by process group
+    (``by_group[group_name][op]``; :meth:`by_axis` names a mesh's groups by
+    their mesh dims).  Group sizes are read off the group, a fake one's
+    too; :meth:`collective_bytes` is the reference's summary."""
 
     def __init__(self):
         super().__init__()
@@ -175,14 +187,32 @@ class CountCollectives(TorchDispatchMode):
                             for t in pytree.tree_leaves(out) if isinstance(t, torch.Tensor))
             wire = ring_wire_bytes(op, payload, out_bytes, _group_size(group))
             for table in (self.stats, self.by_group.setdefault(str(group), {})):
-                rec = table.setdefault(op, {"calls": 0, "payload_bytes": 0, "wire_bytes": 0.0})
+                rec = table.setdefault(op, {"calls": 0, "payload_bytes": 0, "output_bytes": 0,
+                                            "wire_bytes": 0.0})
                 rec["calls"] += 1
                 rec["payload_bytes"] += payload
+                rec["output_bytes"] += out_bytes
                 rec["wire_bytes"] += wire
         return out
 
     def total(self, key: str = "payload_bytes") -> float:
         return sum(r[key] for r in self.stats.values())
+
+    def collective_bytes(self) -> Dict[str, Any]:
+        """The counts under the keys of the reference's
+        ``analysis.hlo_text.collective_bytes``: per collective (its HLO
+        name) the bytes of its outputs on this rank and its calls.  An eager
+        step has no static program, so ``static_counts`` are the calls
+        (``dynamic_counts``), a microbatch loop's once per iteration."""
+        per_op = {name: 0 for name in ("all-gather", "all-reduce", "reduce-scatter",
+                                       "all-to-all", "collective-permute")}
+        counts = dict(per_op)
+        for op, rec in self.stats.items():
+            name = HLO_NAMES[op]
+            per_op[name] = per_op.get(name, 0) + rec["output_bytes"]
+            counts[name] = counts.get(name, 0) + rec["calls"]
+        return {"bytes_per_chip": per_op, "dynamic_counts": counts,
+                "static_counts": dict(counts), "total_bytes_per_chip": sum(per_op.values())}
 
     def by_axis(self, mesh: Any) -> Dict[str, Dict[str, Dict[str, float]]]:
         """``by_group`` keyed by ``mesh``'s dim names (a group of no dim of

@@ -63,8 +63,8 @@ from torch import fx
 from torch.fx.experimental.proxy_tensor import make_fx
 
 from .graph import Graph, Node
-from .prims import (ATEN_HEAVY, ATEN_KINDS, ATEN_NO_ALLOC, ATEN_VIEW_OPS, FLASH_OP, SHARD_OP,
-                    VOCAB_EMBED_OP, VOCAB_PICK_OP)
+from .prims import (ATEN_HEAVY, ATEN_KINDS, ATEN_NO_ALLOC, ATEN_VIEW_OPS, FLASH_BWD_OP, FLASH_OP,
+                    SHARD_OP, VOCAB_EMBED_OP, VOCAB_PICK_OP)
 
 
 def op_name(target: Any) -> str:
@@ -96,12 +96,32 @@ def node_flops(node: fx.Node) -> float:
     if name == "convolution":
         w = args[1]
         return float(2 * out[0].numel() * (w.numel() // w.shape[0]))
-    if name == FLASH_OP:
-        q, k, causal = args[0], args[1], args[3]
+    if name in (FLASH_OP, FLASH_BWD_OP):
+        # the forward's two (Sq, Sk) products; the backward's five (S and
+        # dP recomputed, dV, dQ, dK); a causal mask halves each
+        q, k, causal = args[0], args[1], args[3 if name == FLASH_OP else 7]
         B, Sq, H, D = q.shape
-        flops = 4 * B * H * Sq * k.shape[1] * D
+        flops = (4 if name == FLASH_OP else 10) * B * H * Sq * k.shape[1] * D
         return float(flops // 2 if causal else flops)
     return float(max(1, sum(t.numel() for t in out)))
+
+
+def fx_totals(gm: fx.GraphModule) -> Dict[str, float]:
+    """Global FLOPs and byte traffic of a traced step, the twin of the
+    reference's ``jaxpr_totals``: each op's :func:`node_flops` and its
+    input and output bytes (``getitem`` is no op).  ``heavy_flops`` is the
+    share of the matmuls, convolutions and flash attention."""
+    flops = nbytes = heavy = 0.0
+    for node in gm.graph.nodes:
+        if node.op != "call_function" or node.target is operator.getitem:
+            continue
+        f = node_flops(node)
+        flops += f
+        if op_name(node.target) in ATEN_HEAVY or op_name(node.target) == FLASH_BWD_OP:
+            heavy += f
+        ins = [a.meta.get("val") for a in node.all_input_nodes]
+        nbytes += sum(tensor_bytes(v) for v in ins) + tensor_bytes(node.meta.get("val"))
+    return {"flops": flops, "bytes": nbytes, "heavy_flops": heavy}
 
 
 @dataclasses.dataclass
@@ -130,8 +150,10 @@ class FxGraph:
     def run_node(self, node: fx.Node, read: Callable[[fx.Node], Any]) -> Any:
         """Execute one fx node, reading its operands with ``read`` (a
         sharding constraint through ``parallel.constraint.constrain``,
-        which redistributes a DTensor, and a vocab lookup through
-        ``parallel.vocab``, which runs on a DTensor's local shards)."""
+        which redistributes a DTensor, a vocab lookup through
+        ``parallel.vocab``, which runs on a DTensor's local shards, and the
+        flash op through ``kernels.ops.flash_attention_on_mesh``, which
+        brings GQA's whole KV heads to q's split ones)."""
         if node.op == "get_attr":
             return operator.attrgetter(node.target)(self.gm)
         args, kwargs = fx.node.map_arg((node.args, node.kwargs), read)
@@ -140,6 +162,10 @@ class FxGraph:
             from ..parallel.constraint import constrain
 
             return constrain(*args, **kwargs)
+        if name == FLASH_OP:
+            from ..kernels.ops import flash_attention_on_mesh
+
+            return flash_attention_on_mesh(*args, **kwargs)
         if name in (VOCAB_EMBED_OP, VOCAB_PICK_OP):
             from ..parallel import vocab
 

@@ -125,6 +125,8 @@ ATTENTION_KINDS = frozenset({"attention", "flash_attention", "custom_vjp_call"})
 
 #: The flash-attention custom op (``kernels.ops``).
 FLASH_OP = "repro_torch::flash_attention"
+#: its backward operator (in a trace of a whole step)
+FLASH_BWD_OP = "repro_torch::flash_attention_bwd"
 
 #: The sharding constraint (``parallel.constraint``), traced on a mesh that
 #: splits more than the batch.

@@ -22,11 +22,34 @@ again.  Its backward is a registered operator too
 replicated, lse follows q's (B, H).  DTensor then runs each operator on
 its local shards, so only plain local tensors ever reach the kernels'
 wrappers (which raise on a DTensor): on a model axis, each rank's H/model
-heads.  q, k and v must arrive in one layout: where they do not (GQA's KV
-heads that the model axis does not divide, left whole while q's heads
-split), the rule raises instead of letting DTensor gather heads inside
-attention.  The rules are registered when this module is imported (a
+heads.  The rules are registered when this module is imported (a
 registry entry: no process group is touched).
+
+**GQA whose KV heads the model axis does not divide** (mistral-large's 8
+on a 16-way axis): the reference splits q's heads over ``model`` and
+leaves k and v whole.  :func:`flash_attention` (and the replay of a
+traced flash node) first brings k and v to q's layout
+(:func:`kv_to_q_heads`): each rank repeats, locally, the KV heads that
+its own H/m q heads read (m the ranks that split q's heads), so the
+global k is ``k.repeat_interleave(H // KV, 2)`` in q's placements and the
+local call is MHA at H/m heads (mistral-large on 16: 6 heads, each a copy
+of the rank's one KV head).  The forward sends nothing.  Its backward
+sums each rank's dk and dv into the KV heads they belong to and
+all-reduces the (B, S, KV, D) sums over those ranks, once for k and once
+for v in each attention: per layer 2·B_l·S·KV·D activation-dtype elements
+all-reduced.  Repeating to all H heads and letting DTensor slice them
+(Replicate → Shard) would all-gather 2·B_l·S·H·D in the backward, H/KV
+times the payload (12× for mistral-large), and at least as many bytes on
+the wire for any KV the axis does not divide (a ring all-reduce sends
+2(m−1)/m of its payload, an all-gather (m−1)/m of its output).  Keeping
+the local call GQA (repeating to R = lcm(KV, m) heads only, one KV head a
+rank for mistral-large) sends the same all-reduce, but leaves the dk/dv
+kernel, whose grid runs over KV heads and key blocks, a grid H/m times
+smaller: at mistral-large's shard on an H100 the dk/dv kernel took
+0.6262 ms as GQA over one KV head and 0.1171 ms as MHA over six, whose
+local repeat and sum add 0.0146 and 0.0211 ms (``chip_smoke.py
+--gqa-designs``).  Any other mismatch of layouts still raises, so DTensor
+never gathers heads inside attention without a word.
 """
 
 from __future__ import annotations
@@ -121,9 +144,9 @@ def _register_dtensor_rules() -> None:
 
 
 def _same_layout(q, k, v) -> None:
-    """q, k and v must arrive in one layout: DTensor would otherwise gather
-    heads inside attention without a word (q's heads split over the model
-    axis while GQA's KV heads, which it does not divide, stay whole)."""
+    """q, k and v must arrive in one layout (:func:`kv_to_q_heads` brings
+    GQA's whole KV heads to q's split ones first): DTensor would otherwise
+    gather heads inside attention without a word."""
     layouts = [tuple(t.placements) for t in (q, k, v)]
     if layouts[1:] != layouts[:1] * 2:
         from repro_torch.core.lowering.base import not_ported
@@ -137,6 +160,77 @@ if torch.distributed.is_available():
     _register_dtensor_rules()
 
 
+def _split_heads_dims(q, k) -> list:
+    """The mesh dims on which q's heads are split and k's are whole, when
+    that is the only difference of their layouts (else [])."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(q, DTensor) and isinstance(k, DTensor)):
+        return []
+    dims = []
+    for d, (a, b) in enumerate(zip(q.placements, k.placements)):
+        if a == b:
+            continue
+        if not (isinstance(a, Shard) and a.dim == 2 and b.is_replicate()):
+            return []
+        dims.append(d)
+    return dims
+
+
+class _KVToQHeads(torch.autograd.Function):
+    """k (B, S, KV, D), whole over the mesh dims ``dims`` that split q's
+    heads, → this rank's H/m heads of k repeated to R = H (the global tensor
+    is ``k.repeat_interleave(R // KV, 2)`` in q's placements).  Backward:
+    each local head's cotangent summed into its KV head, then all-reduced
+    over ``dims`` (a ``Partial`` sum redistributed to k's placements)."""
+
+    @staticmethod
+    def forward(ctx, k, q_placements, dims, R):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.parallel.sharding import local_shape_and_offset
+
+        B, S, KV, D = k.shape
+        shape = (B, S, R, D)
+        local_shape, offset = local_shape_and_offset(shape, k.device_mesh, q_placements)
+        heads = torch.arange(offset[2], offset[2] + local_shape[2], device=k.device)
+        kv = torch.div(heads, R // KV, rounding_mode="floor")
+        ctx.kv, ctx.placements, ctx.dims = kv, list(k.placements), dims
+        ctx.meta = (k.shape, k.stride(), k.device_mesh)
+        local = k.to_local().index_select(2, kv)
+        stride = (S * R * D, R * D, D, 1)  # contiguous (B, S, R, D)
+        return DTensor.from_local(local, k.device_mesh, q_placements, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial
+
+        shape, stride, mesh = ctx.meta
+        g = g.to_local()
+        summed = g.new_zeros((*g.shape[:2], shape[2], g.shape[3])).index_add_(2, ctx.kv, g)
+        partial = [Partial() if d in ctx.dims else p for d, p in enumerate(ctx.placements)]
+        dk = DTensor.from_local(summed, mesh, partial, run_check=False, shape=shape,
+                                stride=stride)
+        return dk.redistribute(mesh, ctx.placements), None, None, None
+
+
+def kv_to_q_heads(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k (or v) in q's layout where GQA's KV heads are whole while q's are
+    split over the mesh (the module docstring: repeated to q's H heads,
+    each rank making its H/m locally); k itself otherwise."""
+    dims = _split_heads_dims(q, k)
+    if not dims:
+        return k
+    return _KVToQHeads.apply(k, list(q.placements), dims, q.shape[2])
+
+
+def flash_attention_on_mesh(q, k, v, causal: bool):
+    """The op ``(out, lse)``, with GQA's whole KV heads first brought to q's
+    split heads on a mesh (:func:`kv_to_q_heads`)."""
+    return flash_attention_op(q, kv_to_q_heads(q, k), kv_to_q_heads(q, v), causal)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, KV, D)
@@ -144,4 +238,4 @@ def flash_attention(
     causal: bool = True,
 ) -> torch.Tensor:
     """Differentiable flash attention in model layout (B, S, H, D)."""
-    return flash_attention_op(q, k, v, causal)[0]
+    return flash_attention_on_mesh(q, k, v, causal)[0]

@@ -1,25 +1,36 @@
-"""Hardware constants of the port's target card (NVIDIA H100 SXM), and the
-host mesh (port of ``repro/launch/mesh.py``).
+"""Hardware constants of the port's target card (NVIDIA H100 SXM), the
+host mesh and the production meshes (port of ``repro/launch/mesh.py``).
 
 The reference's module holds TPU v5e constants and builds jax meshes.  The
 planners need the card's memory, which is read from the device itself
 (``torch.cuda.get_device_properties(dev).total_memory``) and threaded
-through ``launch.plan`` as ``hbm_bytes``.  ``REFERENCE_HBM_BYTES`` is the
-reference's 16 GiB v5e figure, kept so tests can pin the reference's budget.
+through ``launch.plan`` as ``hbm_bytes``; :data:`H100_HBM_BYTES` is that
+number on the H100 80GB HBM3 (``chip_smoke.py`` checks it against the
+card), the budget of the dry run, which runs where there is no card.
+``REFERENCE_HBM_BYTES`` is the reference's 16 GiB v5e figure, kept so
+tests can pin the reference's budget.
 
-The mesh is a ``torch.distributed`` ``DeviceMesh`` over the process
+The host mesh is a ``torch.distributed`` ``DeviceMesh`` over the process
 group's world: :func:`init_distributed` starts the group from
 ``torchrun``'s environment (NCCL on CUDA with a card per rank, gloo on the
 CPU or for ranks sharing a node's cards; :func:`pick_backend`), and
-:func:`make_host_mesh` lays its ranks out as ``("data", "model")``.  The
-production TPU meshes (``make_production_mesh``) have no counterpart: a
-pod's 256 chips are not this port's target.
+:func:`make_host_mesh` lays its ranks out as ``("data", "model")``.
+
+The production meshes (:func:`make_production_mesh`: ``{data: 16, model:
+16}`` and ``{pod: 2, data: 16, model: 16}``) are ``DeviceMesh``es over
+torch's *fake* process group in this one process (:func:`fake_group`,
+backend ``"fake"``): this process is rank 0 of 256 or 512, a collective
+returns at once and sends nothing, and the tensors a step runs on are fake
+(no storage).  The reference builds them over 512 placeholder CPU devices
+for the same purpose, its dry run.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
-from typing import Optional, Union
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -29,6 +40,12 @@ PEAK_FLOPS_F32 = 67e12  # per card, CUDA cores (no TF32)
 HBM_BW = 3.35e12  # bytes/s per card
 #: the reference's per-chip HBM (TPU v5e, ``repro/launch/mesh.py:20``)
 REFERENCE_HBM_BYTES = 16 * 1024**3
+#: ``total_memory`` of one NVIDIA H100 80GB HBM3 (the card the port targets)
+H100_HBM_BYTES = 85_017_493_504
+
+#: The reference's production meshes: one pod of 16 × 16, two pods
+SINGLE_POD: Tuple[Tuple[int, ...], Tuple[str, ...]] = ((16, 16), ("data", "model"))
+MULTI_POD: Tuple[Tuple[int, ...], Tuple[str, ...]] = ((2, 16, 16), ("pod", "data", "model"))
 
 
 def device_hbm_bytes(device: Optional[Union[str, torch.device]] = None) -> int:
@@ -104,6 +121,39 @@ def make_host_mesh(device: torch.device, model: int = 1):
     if n % model:
         raise ValueError(f"world size {n} is not divisible by model={model}")
     return init_device_mesh(device.type, (n // model, model), mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_group(world: int) -> Iterator[None]:
+    """This process as rank 0 of a fake process group of ``world`` ranks
+    (``torch.testing._internal.distributed.fake_pg``), destroyed on exit.
+    Raises when a process group is already started here."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already started in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_fake_mesh(shape: Sequence[int], names: Sequence[str], device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``shape`` over the started fake group (its world
+    is the mesh's size)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device_type, torch.arange(math.prod(shape)).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+    """The reference's production mesh over the started fake group of 256
+    (one pod: ``(data 16, model 16)``) or 512 ranks (``multi_pod``: ``(pod 2,
+    data 16, model 16)``)."""
+    return make_fake_mesh(*(MULTI_POD if multi_pod else SINGLE_POD), device_type=device_type)
 
 
 def mesh_num_devices(mesh) -> int:

@@ -21,6 +21,7 @@ size}`` dict: a dict gives spec tuples (the entries of the reference's
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -67,7 +68,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]
     return {"tokens": _sds((B, 1), torch.int32), "positions": _sds((B,), torch.int32)}
 
 
+@functools.lru_cache(maxsize=32)
 def _meta_model(cfg: ModelConfig):
+    """The config's model on the ``meta`` device (built once a config: its
+    parameters are read, never written)."""
     from repro_torch.models import build_model
 
     return build_model(cfg, device="meta")

@@ -11,11 +11,16 @@ rank's shard of the cache).  ``chunked_attention`` is
 the reference's memory-efficient XLA lowering in plain torch (an online
 softmax over KV chunks); as in the reference off its kernel, ``attention``
 takes it, under a checkpoint, for a CPU tensor longer than
-``chunked_threshold``, so the CPU never holds an (S, S) score matrix there.
+``chunked_threshold``, so the CPU never holds an (S, S) score matrix there
+(:data:`CHUNKED_THRESHOLD`, which the dry run raises while its CPU fake
+tensors stand in for the card's).  :func:`split_heads` and :func:`merge_heads` gather
+a projection's columns around the head reshapes where the model axis does
+not divide the heads.
 """
 
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import Dict, Optional, Tuple
 
@@ -23,8 +28,14 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.ops import flash_attention
-from repro_torch.parallel.sharding import resolve, shard, spec_to_placements
+from repro_torch.parallel.sharding import logical_shards, resolve, shard, spec_to_placements
 from .layers import apply_rope, checkpointed, gather_sequence
+
+#: The length above which ``attention`` takes ``chunked_attention`` for a
+#: CPU tensor (unless given ``chunked_threshold=``).  The dry run sets it
+#: to infinity while it steps fake CPU tensors that stand in for the card's.
+CHUNKED_THRESHOLD: contextvars.ContextVar[float] = contextvars.ContextVar(
+    "chunked_threshold", default=8192)
 
 
 def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
@@ -40,9 +51,9 @@ def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = q.reshape(B, S, n_heads, d_head)
-    k = k.reshape(B, S, n_kv_heads, d_head)
-    v = v.reshape(B, S, n_kv_heads, d_head)
+    q = split_heads(q, n_heads, d_head)
+    k = split_heads(k, n_kv_heads, d_head)
+    v = split_heads(v, n_kv_heads, d_head)
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -50,6 +61,30 @@ def qkv_proj(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int,
     k = shard(k, "batch", None, "kv_heads", None)
     v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
+
+
+def split_heads(t: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
+    """(..., n·d_head) → (..., n, d_head).  Where the heads axis's shards do
+    not divide n (mistral-large's 8 KV heads, qwen2.5-14b's 40 heads or
+    xlstm's 4 on a 16-way model axis, whose projections' columns the axis
+    still divides), the columns are first gathered whole, as GSPMD
+    reshards before the reshape: a DTensor does not split a dim it cannot
+    divide."""
+    if n % logical_shards(t, "heads"):
+        t = shard(t, "batch", *(None,) * (t.dim() - 1))
+    return t.reshape(*t.shape[:-1], n, d_head)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n, d_head) → (..., n·d_head); where the heads axis's shards do
+    not divide n, the result is constrained whole over them, so that its
+    cotangent (split over the output projection's rows) is gathered before
+    the reshape's backward splits it into heads."""
+    n = t.shape[-2]
+    out = t.reshape(*t.shape[:-2], n * t.shape[-1])
+    if n % logical_shards(t, "heads"):
+        out = shard(out, "batch", *(None,) * (out.dim() - 1))
+    return out
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -138,24 +173,27 @@ def attention(
     rope_theta: float,
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
-    chunked_threshold: int = 8192,
+    chunked_threshold: Optional[float] = None,
 ) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill), through
     ``kernels.flash_attention``: the CUDA kernels on the card, their plain
-    versions on the CPU up to ``chunked_threshold`` tokens, and above it
+    versions on the CPU up to ``chunked_threshold`` tokens (None:
+    :data:`CHUNKED_THRESHOLD`'s), and above it
     ``chunked_attention`` under a checkpoint, as the reference runs off
     its kernel."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = qkv_proj(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta)
+    if chunked_threshold is None:
+        chunked_threshold = CHUNKED_THRESHOLD.get()
     if x.device.type == "cpu" and S > chunked_threshold:
         ctx = checkpointed(lambda q_, k_, v_: chunked_attention(q_, k_, v_, causal=causal),
                            q, k, v)
     else:
         ctx = flash_attention(q, k, v, causal=causal)
     ctx = shard(ctx, "batch", None, "heads", None)
-    out = ctx.reshape(B, S, n_heads * d_head) @ p["wo"].to(x.dtype)
+    out = merge_heads(ctx) @ p["wo"].to(x.dtype)
     return shard(out, "batch", None, "model")
 
 
@@ -201,7 +239,7 @@ def decode_attention(
         cache_v[rows, at] = v[:, 0]
         kc, vc = cache_k, cache_v
     ctx = attend_cache(q, kc, vc, position)
-    out = ctx.reshape(B, 1, n_heads * d_head) @ p["wo"].to(x.dtype)
+    out = merge_heads(ctx) @ p["wo"].to(x.dtype)
     return shard(out, "batch", None, "model"), cache_k, cache_v
 
 
@@ -276,9 +314,9 @@ def _onto(t: torch.Tensor, placements) -> DTensor:
 
 def _offset(t: DTensor, dim: int) -> int:
     """The global index of this rank's first element of ``t`` along ``dim``."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.parallel.sharding import local_shape_and_offset
 
-    return compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)[1][dim]
+    return local_shape_and_offset(t.shape, t.device_mesh, t.placements)[1][dim]
 
 
 def _write_rows(cache: DTensor, new: torch.Tensor, position: torch.Tensor) -> None:

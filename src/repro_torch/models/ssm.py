@@ -35,6 +35,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.parallel.sharding import shard
+from .attention import merge_heads, split_heads
 from .layers import checkpointed, gather_sequence, init_normal, rmsnorm
 
 
@@ -320,16 +321,16 @@ def mlstm_apply(p: Dict, x: torch.Tensor, n_heads: int, chunk: int) -> torch.Ten
     H = n_heads
     Dh = D // H
     h = gather_sequence(rmsnorm(p["norm"]["scale"], x))
-    q = shard((h @ p["wq"].to(dt_)).reshape(B, S, H, Dh), "batch", None, "heads", None)
-    k = shard((h @ p["wk"].to(dt_)).reshape(B, S, H, Dh), "batch", None, "heads", None)
-    v = shard((h @ p["wv"].to(dt_)).reshape(B, S, H, Dh), "batch", None, "heads", None)
+    q = shard(split_heads(h @ p["wq"].to(dt_), H, Dh), "batch", None, "heads", None)
+    k = shard(split_heads(h @ p["wk"].to(dt_), H, Dh), "batch", None, "heads", None)
+    v = shard(split_heads(h @ p["wv"].to(dt_), H, Dh), "batch", None, "heads", None)
     k = k * (Dh**-0.5)
     i_gate, a_log = _mlstm_gates(p, h, H)
     ig = i_gate[..., None].to(dt_)
     y, _ = ssd_chunked(v * ig, a_log, k, q, chunk)  # state (B,H,Dh_v,Dh_k)
     nrm, _ = ssd_chunked(ig, a_log, k, q, chunk)  # (B,S,H,1)
     y = y / torch.clamp(nrm.abs(), min=1.0)
-    y = rmsnorm(p["out_norm"]["scale"], y.reshape(B, S, D))
+    y = rmsnorm(p["out_norm"]["scale"], merge_heads(y))
     return x + shard(y @ p["wo"].to(dt_), "batch", None, "model")
 
 
@@ -348,15 +349,15 @@ def mlstm_step(p: Dict, x: torch.Tensor, state: Dict[str, torch.Tensor], n_heads
     dt_ = x.dtype
     H, Dh = n_heads, D // n_heads
     h = rmsnorm(p["norm"]["scale"], x)[:, 0]
-    q = (h @ p["wq"].to(dt_)).reshape(B, H, Dh)
-    k = (h @ p["wk"].to(dt_)).reshape(B, H, Dh) * (Dh**-0.5)
-    v = (h @ p["wv"].to(dt_)).reshape(B, H, Dh)
+    q = split_heads(h @ p["wq"].to(dt_), H, Dh)
+    k = split_heads(h @ p["wk"].to(dt_), H, Dh) * (Dh**-0.5)
+    v = split_heads(h @ p["wv"].to(dt_), H, Dh)
     i_gate, a_log = _mlstm_gates(p, h, H)
     ig = i_gate[..., None].to(dt_)
     y, C = ssd_step(v * ig, a_log, k, q, state["C"])
     nrm, n = ssd_step(ig, a_log, k, q, state["n"])
     y = y / torch.clamp(nrm.abs(), min=1.0)
-    y = rmsnorm(p["out_norm"]["scale"], y.reshape(B, D))
+    y = rmsnorm(p["out_norm"]["scale"], merge_heads(y))
     return x + (y @ p["wo"].to(dt_))[:, None, :], {"C": C, "n": n}
 
 

@@ -41,6 +41,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import flash_attention
 from . import attention as attn
+from .attention import merge_heads, split_heads
 from repro_torch.parallel.sharding import shard
 from .layers import (embed, gather_sequence, gelu_mlp, init_normal, layernorm, softmax_xent,
                      unembed)
@@ -100,8 +101,8 @@ class DecoderLayer(nn.Module):
         B, T, _ = enc_out.shape
         dt = enc_out.dtype
         enc_out = gather_sequence(enc_out)
-        k = (enc_out @ p.wk.to(dt)).reshape(B, T, c.n_kv_heads, c.head_dim)
-        v = (enc_out @ p.wv.to(dt)).reshape(B, T, c.n_kv_heads, c.head_dim)
+        k = split_heads(enc_out @ p.wk.to(dt), c.n_kv_heads, c.head_dim)
+        v = split_heads(enc_out @ p.wv.to(dt), c.n_kv_heads, c.head_dim)
         return (shard(k, "batch", None, "kv_heads", None),
                 shard(v, "batch", None, "kv_heads", None))
 
@@ -110,10 +111,10 @@ class DecoderLayer(nn.Module):
         """x (B, S, D) queries against the encoder's K/V through ``attend``."""
         c, p = self.cfg, self.cross_attn
         B, S, _ = x.shape
-        q = (gather_sequence(x) @ p.wq.to(x.dtype)).reshape(B, S, c.n_heads, c.head_dim)
+        q = split_heads(gather_sequence(x) @ p.wq.to(x.dtype), c.n_heads, c.head_dim)
         ctx = shard(attend(shard(q, "batch", None, "heads", None), xk, xv),
                     "batch", None, "heads", None)
-        out = ctx.reshape(B, S, c.n_heads * c.head_dim) @ p.wo.to(x.dtype)
+        out = merge_heads(ctx) @ p.wo.to(x.dtype)
         return shard(out, "batch", None, "model")
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor,

@@ -346,6 +346,14 @@ def model_parallel(x: Any) -> bool:
     return any(n not in BATCH_AXES and k > 1 for n, k in sizes.items())
 
 
+def logical_shards(x: Any, name: str) -> int:
+    """How many ways the logical axis ``name`` splits on ``x``'s mesh (a
+    DTensor's, else the mesh being traced), divisibility aside."""
+    mesh = getattr(x, "device_mesh", None)
+    sizes = axis_sizes_of(mesh) if mesh is not None else _TRACE_MESH.get()
+    return _entry_shards(resolve_spec((name,), sizes)[0], sizes)
+
+
 def shard(x: Any, *logical: Optional[str]) -> Any:
     """The reference's sharding constraint by logical axis names.
 
@@ -751,6 +759,18 @@ def like(t: Any, ref: Any) -> Any:
     if not isinstance(ref, DTensor) or list(t.placements) == list(ref.placements):
         return t
     return t.redistribute(ref.device_mesh, ref.placements)
+
+
+def local_shape_and_offset(shape: Sequence[int], mesh: Any, placements: Sequence[Any]):
+    """This rank's shard shape and global offset of a tensor of ``shape``
+    in ``placements`` (DTensor's ``compute_local_shape_and_global_offset``,
+    run outside any fake-tensor mode: torch 2.13 computes the offsets with
+    tensors, whose values a fake mode does not hold)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(shape, mesh, placements)
 
 
 def place(t: Any, mesh: Any, spec: Spec) -> Any:

@@ -230,15 +230,14 @@ class Engine:
         rank zeroes the slot in its local shard where that shard holds the
         slot's row (indexing a slot of a batch-sharded DTensor would
         gather it)."""
-        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+        from repro_torch.parallel.sharding import local_shape_and_offset
 
         tree = self.caches["self"] if self.model.cfg.encoder_decoder else self.caches
         for t in pytree.tree_leaves(tree):
             if self.mesh is None:
                 t[:, slot].zero_()
                 continue
-            shape, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
-                                                                  t.placements)
+            shape, offset = local_shape_and_offset(t.shape, t.device_mesh, t.placements)
             if offset[1] <= slot < offset[1] + shape[1]:
                 t.to_local()[:, slot - offset[1]].zero_()
 

@@ -26,6 +26,12 @@ Ported responsibilities:
   ``torch.func.functional_call`` of the model: traced with ``make_fx``,
   planned under the budget and lowered by the default backend (``"fx"``),
   once per batch signature (later steps neither re-trace nor re-plan);
+* **microbatches and mixed precision** — ``n_micro`` accumulates the
+  gradients of equal microbatches of each rank's rows (the reference's
+  ``build_train_step``), ``mixed_precision`` runs the loss on a bf16 copy
+  of the f32 masters cast once a step (its ``"mp"`` knob);
+  :meth:`Trainer.step_tensors` is the step's body (``train_step`` adds
+  the NaN guard's host read; the dry run steps fake tensors without it);
 * **gradient compression** — ``compress_grads`` runs the reference's int8
   error-feedback round-trip (``optim.compression``) on the gradients'
   local values before the update;
@@ -109,6 +115,14 @@ class TrainConfig:
     optimizer: adamw.AdamWConfig = dataclasses.field(
         default_factory=adamw.AdamWConfig
     )
+    # Gradient accumulation: the batch (each rank's rows) in n_micro equal
+    # microbatches, one forward and backward each; the step's loss and
+    # gradients are their means (the reference's build_train_step scan).
+    n_micro: int = 1
+    # The reference's "mp" knob: the loss runs on a bf16 compute copy of the
+    # f32 masters, cast once a step before it, so the FSDP gathers of the
+    # weights move bf16; the gradients reach the masters in f32.
+    mixed_precision: bool = False
 
 
 class _LossModule(nn.Module):
@@ -152,6 +166,24 @@ def _onto(t: torch.Tensor, mesh: Any, spec: sh.Spec = ()) -> torch.Tensor:
     return full if mesh is None else sh.place(full, mesh, spec)
 
 
+def _micro_batches(batch: Dict[str, torch.Tensor], n: int):
+    """``batch`` in ``n`` equal microbatches of its rows: a DTensor's local
+    rows are split on each rank (every microbatch keeps the batch's
+    placements), a plain tensor's rows whole."""
+    parts: Dict[str, Any] = {}
+    for k, t in batch.items():
+        local = t.to_local() if isinstance(t, DTensor) else t
+        if local.shape[0] % n:
+            raise ValueError(f"{local.shape[0]} rows of {k!r} do not split into "
+                             f"{n} microbatches")
+        chunks = local.chunk(n)
+        if isinstance(t, DTensor):
+            chunks = [DTensor.from_local(c, t.device_mesh, t.placements, run_check=False)
+                      for c in chunks]
+        parts[k] = chunks
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _sharded(t: torch.Tensor) -> bool:
     return isinstance(t, DTensor) and not all(p.is_replicate() for p in t.placements)
 
@@ -178,14 +210,12 @@ class Trainer:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [reference_ndim(n, p) >= 2 for n, p in named]
-        self.opt_state = adamw.init(self.params)
-        self.err_fb = init_error_feedback(self.params) if cfg.compress_grads else None
+        self.opt_state = self.err_fb = None  # made in their parameters' layout
         self.mesh = None
         param_shardings, self.batch_shardings = in_shardings or (None, None)
-        if mesh is not None:
-            self._set_mesh(mesh, param_shardings)
-        elif in_shardings is not None:
+        if mesh is None and in_shardings is not None:
             raise ValueError("in_shardings= needs mesh=")
+        self._set_mesh(mesh, param_shardings)
         self.planned = None
         self._build_step()
         self.step = 0
@@ -210,7 +240,9 @@ class Trainer:
     def _set_mesh(self, mesh: Any, param_shardings: Any = None) -> None:
         """Lay the parameters, moments and error feedback out on ``mesh`` in
         ``param_shardings`` (a name → spec or placements dict; None:
-        replicated), or back to plain tensors (``mesh=None``)."""
+        replicated), or back to plain tensors (``mesh=None``).  A new
+        Trainer's moments are made after its parameters are placed, so no
+        process holds the whole of them."""
         specs = [()] * len(self.params)
         if mesh is not None:
             check_executable_mesh(mesh)
@@ -220,18 +252,24 @@ class Trainer:
             if param_shardings is not None:
                 specs = [sh.normalize_spec(param_shardings.get(n), mesh, p.dim())
                          for n, p in zip(self.names, self.params)]
-            if self.err_fb is not None and any(any(e is not None for e in s) for s in specs):
+            if self.cfg.compress_grads and any(any(e is not None for e in s) for s in specs):
                 from repro_torch.core.lowering.base import not_ported
 
                 raise not_ported("compress_grads on sharded parameters (the codec's blocks "
                                  "are the global gradient's)", "Multi-device")
-        self._replace_params([_onto(p, mesh, s) for p, s in zip(self.params, specs)])
+        if mesh is not None or self.mesh is not None:
+            self._replace_params([_onto(p, mesh, s) for p, s in zip(self.params, specs)])
+        self.mesh = mesh
         st = self.opt_state
+        if st is None:  # a new Trainer: zero moments made on each rank's shards
+            self.opt_state = adamw.init(self.params)
+            if self.cfg.compress_grads:
+                self.err_fb = init_error_feedback(self.params)
+            return
         st.mu = [_onto(m, mesh, s) for m, s in zip(st.mu, specs)]
         st.nu = [_onto(v, mesh, s) for v, s in zip(st.nu, specs)]
         if self.err_fb is not None:
             self.err_fb = [_onto(e, mesh, s) for e, s in zip(self.err_fb, specs)]
-        self.mesh = mesh
 
     def _batch_spec(self, key: str, t: torch.Tensor) -> sh.Spec:
         """The batch tensor's spec from ``batch_shardings``, by default
@@ -258,6 +296,9 @@ class Trainer:
         self.planned = None
         if self.cfg.plan_budget is None:
             return
+        if self.cfg.mixed_precision:
+            raise ValueError("mixed_precision runs the plain step; plan_budget plans the "
+                             "f32 loss")
         from repro_torch.core.lowering import plan_function
 
         step_loss, self._by_key = functional_loss(self.loss_fn, self.model)
@@ -307,16 +348,61 @@ class Trainer:
         return self._step(batch)
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        out = self.step_tensors(batch, nan_guard=True)
+        return {**out, "loss": float(out["loss"]), "grad_norm": float(out["grad_norm"])}
+
+    def step_tensors(self, batch: Dict[str, torch.Tensor],
+                     nan_guard: bool = False) -> Dict[str, Any]:
+        """One step; the loss and the grad norm stay tensors.  With
+        ``nan_guard`` (``train_step``'s) both are read on the host and the
+        update is skipped when either is non-finite (``ok``); without it
+        nothing is read on the host and the update is applied whatever they
+        hold (the dry run steps fake tensors so)."""
+        loss, grads, gnorm = self._grads(batch)
+        loss = _local(loss)
+        ok = not nan_guard or (math.isfinite(float(loss)) and math.isfinite(float(gnorm)))
+        lr = (self._update(grads, gnorm) if ok
+              else adamw.lr_schedule(self.cfg.optimizer, self.opt_state.step + 1))
+        return {"loss": loss, "grad_norm": gnorm, "lr": lr, "ok": ok}
+
+    def _value_and_grad(self, batch: Dict[str, torch.Tensor]):
+        """One (micro)batch's loss and gradients, each gradient in its
+        parameter's placements (``"rs"``: an FSDP shard's ``Partial``
+        gradient is reduce-scattered onto it, a replicated one's
+        all-reduced)."""
+        if self.planned is not None:
+            loss, by_key = self.planned(self._by_key, batch)
+            return loss, [by_key[k] for k in self._by_key]
+        if self.cfg.mixed_precision:
+            fn, _ = functional_loss(self.loss_fn, self.model)
+            loss = fn({"model." + n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                       for n, p in zip(self.names, self.params)}, batch)
+        else:
+            loss = self.loss_fn(self.model, batch)
+        grads = [in_layout(g, p) for g, p in
+                 zip(torch.autograd.grad(loss, self.params), self.params)]
+        return value_out(loss), grads
+
+    def _grads(self, batch: Dict[str, torch.Tensor]):
+        """The step's loss, local gradients (after the error-feedback codec)
+        and global gradient norm; over ``n_micro`` microbatches the mean
+        loss and the mean of the gradients, accumulated in f32."""
         batch = self._place_batch(batch)
+        n = self.cfg.n_micro
         with on_mesh(self.params):
-            if self.planned is None:
-                loss = self.loss_fn(self.model, batch)
-                grads = [in_layout(g, p) for g, p in
-                         zip(torch.autograd.grad(loss, self.params), self.params)]
-                loss = value_out(loss)
+            if n == 1:
+                loss, grads = self._value_and_grad(batch)
             else:
-                loss, by_key = self.planned(self._by_key, batch)
-                grads = [by_key[k] for k in self._by_key]
+                loss = grads = None
+                for mb in _micro_batches(batch, n):
+                    l_, g_ = self._value_and_grad(mb)
+                    if grads is None:
+                        loss, grads = l_, [g.float() for g in g_]
+                    else:
+                        loss = loss + l_
+                        grads = [a + g.float() for a, g in zip(grads, g_)]
+                    del l_, g_
+                loss, grads = loss / n, [g / n for g in grads]
         # the global norm: each leaf's local squares reduced over the mesh
         # dims that shard it (a replicated leaf's local value is whole)
         gnorm = adamw.global_norm(grads)
@@ -330,19 +416,18 @@ class Trainer:
                     _local(e).copy_(new_err)
                 del new_err
             gnorm = adamw.global_norm(grads)
-        loss_f, gnorm_f = float(_local(loss)), float(gnorm)
-        # NaN guard: skip the update when loss/grad-norm is non-finite.
-        ok = math.isfinite(loss_f) and math.isfinite(gnorm_f)
-        lr = adamw.lr_schedule(self.cfg.optimizer, self.opt_state.step + 1)
-        if ok:
-            st = self.opt_state
-            local_state = adamw.AdamWState(st.step, [_local(m) for m in st.mu],
-                                           [_local(v) for v in st.nu])
-            lr = adamw.update(self.cfg.optimizer, grads, local_state,
-                              [_local(p) for p in self.params], decay=self.decay,
-                              gnorm=gnorm)["lr"]
-            st.step = local_state.step
-        return {"loss": loss_f, "grad_norm": gnorm_f, "lr": lr, "ok": ok}
+        return loss, grads, gnorm
+
+    def _update(self, grads, gnorm) -> float:
+        """AdamW on the local tensors, in place; returns the step's lr."""
+        st = self.opt_state
+        local_state = adamw.AdamWState(st.step, [_local(m) for m in st.mu],
+                                       [_local(v) for v in st.nu])
+        lr = adamw.update(self.cfg.optimizer, grads, local_state,
+                          [_local(p) for p in self.params], decay=self.decay,
+                          gnorm=gnorm)["lr"]
+        st.step = local_state.step
+        return lr
 
     # --------------------------------------------------------- run control
 

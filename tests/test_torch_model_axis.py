@@ -23,11 +23,18 @@ matrices):
   its planned twin is bitwise it, ``remesh(shardings=)`` is bitwise a
   Trainer built there, and a checkpoint restart is bitwise (full arrays on
   disk);
-* ``compress_grads`` on sharded parameters and GQA whose KV heads the
-  model axis does not divide raise, naming ROADMAP.md 'Multi-device';
-* every other family (zamba2, xlstm, whisper, granite, reduced; a global
-  batch of 4 × 8) gives the reference's unsharded loss (rtol 1e-6 with the
-  floor) and gradients on its ``specs`` layout: xlstm's and granite's
+* ``compress_grads`` on sharded parameters raises, naming ROADMAP.md
+  'Multi-device';
+* GQA whose KV heads the model axis does not divide (q's heads split, k's
+  and v's whole): the flash kernels get each rank's q heads over as many
+  local copies of its own KV head (MHA), the forward sends nothing and the
+  backward all-reduces the dk and dv sums, (B_l, S, KV, D) each, over
+  ``model``; values and grads
+  within rtol 1e-6 (with the floor) of the reference's dense attention;
+* every other family (zamba2, xlstm, whisper, granite, reduced: granite
+  with its own 1 KV head; a global batch of 4 × 8) gives the reference's
+  unsharded loss (rtol 1e-6 with the floor) and gradients on its
+  ``specs`` layout: xlstm's and granite's
   within rtol 1e-6 with the floor; whisper's and zamba2's within the
   bounds their unsharded port is held to (``tests/test_torch_whisper.py``:
   rtol 1e-4; ``tests/test_torch_families.py``: zamba2 against an f64 run
@@ -35,7 +42,11 @@ matrices):
   rtol 1e-6 of the reference (measured 1.1e-6 and 1.5e-5 of the largest
   gradient); and a Trainer step on
   ``Trainer(mesh=, in_shardings=specs.param_shardings(...))`` holds exactly
-  ``specs.state_bytes_per_device`` a rank.
+  ``specs.state_bytes_per_device`` a rank;
+* the dry run's ``trace_cell`` on a fake ``{data: 2, model: 2}`` group
+  (one process, destroyed after) counts rank 0's collectives of the
+  tensor-parallel Trainer's first step and of granite's, op for op and
+  byte for byte, as the real ranks' counter does.
 
 One process: the constraints enter a trace only on a mesh that splits more
 than the batch, so every other path is unchanged.
@@ -90,12 +101,10 @@ def close(got, want, what=""):
 
 
 def _family(arch):
-    """The reduced f32 reference config (granite with 2 KV heads, which the
-    model axis divides: its reduced 1 KV head is the layout that still
-    raises), its model, weights and a global batch of 4 × 8."""
+    """The reduced f32 reference config (granite with its own 1 KV head,
+    which the model axis does not divide), its model, weights and a global
+    batch of 4 × 8."""
     cfg = dataclasses.replace(rreduced(rget_config(arch)), dtype="float32")
-    if cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, n_kv_heads=2)
     model = rbuild_model(cfg)
     # the weights of the port's init from seed 7, in the reference's tree
     # (the reference's own init takes seconds a family in eager JAX)
@@ -255,9 +264,69 @@ def test_sharded_checkpoint_restart_is_bitwise(four_ranks):
         assert bool(r["ckpt_restored"]) and bool(r["ckpt_resumed_bitwise"])
 
 
-@pytest.mark.parametrize("check", ["compress_raises", "gqa_raises"])
+@pytest.mark.parametrize("check", ["compress_raises"])
 def test_what_is_not_ported_on_the_model_axis_raises(four_ranks, check):
     assert all(bool(r[check]) for r in four_ranks[-3]), check
+
+
+def test_gqa_flash_ops_run_on_each_ranks_own_kv_head(four_ranks):
+    """q (2, 8, 4, 16) split over ``data`` and ``model``, k = v (2, 8, 1,
+    16) whole over ``model``: each rank's kernels get its 2 q heads over 2
+    copies of its KV head; a forward and backward all-reduce only dk's and
+    dv's (1, 8, 1, 16) f32 sums over ``model``, the gradient keeps k's
+    layout, and the values are the reference's dense attention's."""
+    from repro.models.attention import dense_attention
+
+    q = torch.randn(2, 8, 4, 16, generator=torch.Generator().manual_seed(1)).numpy()
+    kv = torch.randn(2, 8, 1, 16, generator=torch.Generator().manual_seed(2)).numpy()
+
+    def f(q_, kv_):
+        return jnp.sum(jnp.square(dense_attention(q_, kv_, kv_)))
+
+    out = dense_attention(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv))
+    dq, dkv = jax.grad(f, argnums=(0, 1))(jnp.asarray(q), jnp.asarray(kv))
+    for r in four_ranks[-3]:
+        assert {tuple(s) for s in r["gqa_local_q"]} == {(1, 2, 8, 16)}
+        assert {tuple(s) for s in r["gqa_local_k"]} == {(1, 2, 8, 16)}
+        comm = {k[len("gqa_comm:"):]: int(v) for k, v in r.items() if k.startswith("gqa_comm:")}
+        assert comm == {"model:all_reduce:calls": 2,
+                        "model:all_reduce:payload": 2 * 1 * 8 * 1 * 16 * 4}
+        assert str(r["gqa_kv_placements"]) == "[Shard(dim=0), Replicate()]"
+        close(r["gqa_out"], out, "out")
+        close(r["gqa_dq"], dq, "dq")
+        close(r["gqa_dkv"], dkv, "dkv")
+
+
+@pytest.mark.parametrize("case", ["dense", "granite-moe-3b-a800m"])
+def test_fake_group_counts_the_real_ranks_collectives(four_ranks, case):
+    """``launch.dryrun.trace_cell`` on a fake ``{data: 2, model: 2}`` group,
+    rank 0's fake shards: the same step's collectives by axis, calls and
+    payload bytes, as the four real ranks' counter read (the
+    tensor-parallel Trainer's first step at d_model 256; granite's Trainer
+    step with its one KV head)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import REFERENCE_HBM_BYTES, fake_group, make_fake_mesh
+
+    *_, ranks, wide, families = four_ranks
+    if case == "dense":
+        cfg, shape, prefix = wide[1], ShapeConfig("train", SEQ, BATCH, "train"), "tp_"
+    else:
+        cfg = dataclasses.replace(reduced(get_config(case)), dtype="float32")
+        shape, prefix = ShapeConfig("train", FAMILY_SEQ, FAMILY_BATCH, "train"), f"{case}:"
+    with fake_group(WORLD):
+        rec = trace_cell(cfg, shape, make_fake_mesh((2, 2), ("data", "model")),
+                         hbm_bytes=REFERENCE_HBM_BYTES, totals=False,
+                         segment_sizes=(cfg.n_layers,), n_micro=1)
+    got = {(axis, op): (int(v["calls"]), int(v["payload_bytes"]))
+           for axis, ops in rec["collectives_by_axis"].items() for op, v in ops.items()}
+    r = ranks[0]
+    want = {}
+    for k, v in r.items():
+        if k.startswith(prefix + "calls:"):
+            axis, op = k[len(prefix + "calls:"):].split(":")
+            want[(axis, op)] = (int(v), int(r[f"{prefix}comm:{axis}:{op}"]))
+    assert want and got == want
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -313,7 +382,8 @@ def test_family_trains_on_the_model_axis_in_its_specs_layout(four_ranks, arch):
     ``specs.state_bytes_per_device`` of parameters and AdamW moments, some
     leaves split over ``model``, and the flash kernels (granite's GQA
     attention, whisper's encoder, decoder and cross-attention) get half the
-    heads."""
+    heads (granite's k and v too: its one KV head repeated to each rank's q
+    heads)."""
     *_, ranks, _, families = four_ranks
     cfg, loss = families[arch][0], families[arch][-1][0]
     for r in ranks:
@@ -323,6 +393,8 @@ def test_family_trains_on_the_model_axis_in_its_specs_layout(four_ranks, arch):
         heads = r[f"{arch}:flash_local_heads"].tolist()
         assert heads == ([cfg.n_heads // 2] if arch in ("granite-moe-3b-a800m", "whisper-small",
                                                        "zamba2-2.7b") else []), heads
+        if arch == "granite-moe-3b-a800m":  # its KV head, repeated locally
+            assert r[f"{arch}:flash_local_kv_heads"].tolist() == heads
 
 
 # ---------------------------------------------------------------------------

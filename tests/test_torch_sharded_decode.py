@@ -4,17 +4,21 @@ unsharded engine.
 
 Four gloo ranks on the CPU, ``{data: 2, model: 2}`` (one spawn,
 ``tests/torch_dist_workers.py`` case ``sharded_decode``), f32, each family
-reduced (granite with 2 KV heads, which the model axis divides; its
-reduced config's 1 KV head takes the layouts ROADMAP 'Multi-device' leaves
-for later) on the same weights in both (the port's init from a seed,
-``weights.params_to_jax``), the step shardings from
-``launch.steps.decode_shardings``:
+reduced (granite with its own 1 KV head, which the model axis does not
+divide: its caches split their sequence over ``model``) on the same
+weights in both (the port's init from a seed, ``weights.params_to_jax``),
+the step shardings from ``launch.steps.build_decode_step`` (its
+``decode_shardings``):
 
 * every request's greedy tokens equal the reference ``Engine``'s on the
   same weights, prompts (and whisper's frames), token for token, and every
   engine step's (slots, V) logits match within rtol 1e-5, with an
   absolute floor of rtol × the step's largest |logit|; the parameters are
   sharded and every cache leaf keeps its data rank's rows;
+* a one-slot engine under ``"ws"`` (weight-stationary decode: the
+  residual's features over ``data``, which one slot leaves free) gives the
+  reference's tokens and logits under the same limits, its activations'
+  partial sums all-reduced over ``data``;
 * a one-slot engine (``global_batch`` 1: the long-context layout) splits
   its caches' sequence over ``data`` and gives the reference's tokens;
 * ``plan_scoring(in_shardings=)`` is bitwise ``plan_function(mesh=,
@@ -60,8 +64,7 @@ RTOL = 1e-5
 
 
 def _rconfig(arch):
-    cfg = dataclasses.replace(rreduced(rget_config(arch)), dtype="float32")
-    return dataclasses.replace(cfg, n_kv_heads=2) if cfg.moe is not None else cfg
+    return dataclasses.replace(rreduced(rget_config(arch)), dtype="float32")
 
 
 def _reference(arch, tree, n_slots, prompts, frames=None):
@@ -155,6 +158,20 @@ def test_one_slot_engine_splits_the_sequence_over_data(four_ranks):
         assert r["long:tokens"].tolist() == tokens.tolist()
         for i, (got, want) in enumerate(zip(r["long:logits"], logits)):
             _close(got, want, RTOL, f"long step {i}")
+
+
+def test_weight_stationary_engine_gives_the_references_logits(four_ranks):
+    refs, _, ranks = four_ranks
+    tokens, logits = refs["long"]
+    for r in ranks:
+        assert str(r["ws:rules_model"]) == "data"
+        assert r["ws:tokens"].tolist() == tokens.tolist()
+        for i, (got, want) in enumerate(zip(r["ws:logits"], logits)):
+            _close(got, want, RTOL, f"ws step {i}")
+        # the features' partial sums: more all-reduces over data than the
+        # long-context engine's softmax reductions alone
+        assert int(r["ws:comm:data:all_reduce:calls"]) > int(
+            r.get("long:comm:data:all_reduce:calls", 0))
 
 
 def test_plan_scoring_is_plan_functions_sharded_twin(four_ranks):

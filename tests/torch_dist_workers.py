@@ -278,15 +278,16 @@ def case_planning(inp, rank, world):
             return match in str(e) and "Multi-device" in str(e)
         return False
 
-    # on the model axis: flash attention whose q heads are split while its
-    # KV heads stay whole (GQA's KV heads the axis does not divide)
+    # on the model axis: flash attention whose q, k and v arrive in layouts
+    # other than GQA's (q's heads split, k's and v's whole), here k's and
+    # v's batch split over data while q's is whole
     from repro_torch.kernels.ops import flash_attention
 
     m22 = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
     qkv = torch.tensor(inp["ax"]).reshape(2, -1, 2, 4)
     out["model_axis_raises"] = np.array(raises(
         lambda: flash_attention(sh.place(qkv, m22, (None, None, "model", None)),
-                                sh.place(qkv, m22, ()), sh.place(qkv, m22, ())),
+                                sh.place(qkv, m22, ("data",)), sh.place(qkv, m22, ("data",))),
         "differing layouts"))
     every = make_plan(cg, [frozenset(range(cg.n))])
     out["strategy_raises"] = np.array(raises(
@@ -441,7 +442,7 @@ class FlashLayouts:
         from torch.utils._python_dispatch import TorchDispatchMode
 
         seen = self.placements = []
-        self.local_q = []
+        self.local_q, self.local_k = [], []
         flash = {torch.ops.repro_torch.flash_attention.default,
                  torch.ops.repro_torch.flash_attention_bwd.default}
 
@@ -459,9 +460,10 @@ class FlashLayouts:
         for name in ("flash_attention_fwd", "flash_attention_bwd"):
             orig = getattr(fa, name)
 
-            def wrapped(q, *a, _orig=orig, **kw):
+            def wrapped(q, k, *a, _orig=orig, **kw):
                 self.local_q.append(tuple(q.shape))
-                return _orig(q, *a, **kw)
+                self.local_k.append(tuple(k.shape))
+                return _orig(q, k, *a, **kw)
 
             setattr(fa, name, wrapped)
 
@@ -605,6 +607,7 @@ def case_model_axis(inp, rank, world):
     for axis, ops in tpt.comm_by_axis.items():
         for op, rec in ops.items():
             out[f"tp_comm:{axis}:{op}"] = np.array(rec["payload_bytes"])
+            out[f"tp_calls:{axis}:{op}"] = np.array(rec["calls"])
     out["tp_local_param_bytes"] = np.array(sum(p.to_local().numel() * 4 for p in tpt.params))
     out["tp_model_sharded_leaves"] = np.array(sum(
         1 for p in tpt.params if not p.placements[1].is_replicate()))
@@ -678,18 +681,25 @@ def case_model_axis(inp, rank, world):
 
     out["compress_raises"] = np.array(raises(lambda: trainer(compress_grads=True),
                                              "compress_grads on sharded parameters"))
-    # GQA whose one KV head the model axis does not divide (the reduced
-    # granite): q's heads split, k's and v's whole
-    gqa_cfg = dataclasses.replace(reduced(get_config("granite-moe-3b-a800m")), dtype="float32")
-    gqa = build_model(gqa_cfg, device="cpu")
-    out["gqa_raises"] = np.array(raises(
-        lambda: Trainer(loss_fn, gqa, TrainConfig(log_every=0, total_steps=1), device="cpu",
-                        mesh=mesh, in_shardings=(specs.param_shardings(
-                            gqa_cfg, mesh, dict(gqa.named_parameters())), None)).train_step(
-            {k: torch.as_tensor(v) for k, v in SyntheticLM(
-                DataConfig(gqa_cfg.vocab_size, seq, batch, num_hosts=2,
-                           host_id=data_rank)).batch(0).items()}),
-        "differing layouts"))
+    # GQA whose one KV head the model axis does not divide: q's heads
+    # split, k's and v's whole; the flash ops' forward and backward send
+    # only the dk and dv sums over model, (B_l, S, KV, D) f32 each
+    gq = sh.place(torch.randn(2, 8, 4, 16, generator=torch.Generator().manual_seed(1)),
+                  mesh, ("data", None, "model", None)).requires_grad_()
+    gkv = sh.place(torch.randn(2, 8, 1, 16, generator=torch.Generator().manual_seed(2)),
+                   mesh, ("data", None, None, None)).requires_grad_()
+    layouts.local_q.clear()
+    layouts.local_k.clear()
+    with CountCollectives() as counted:
+        grads_ = torch.autograd.grad(flash_attention(gq, gkv, gkv).square().sum(), (gq, gkv))
+    for axis, ops in counted.by_axis(mesh).items():
+        for op, rec in ops.items():
+            out[f"gqa_comm:{axis}:{op}:calls"] = np.array(rec["calls"])
+            out[f"gqa_comm:{axis}:{op}:payload"] = np.array(rec["payload_bytes"])
+    out["gqa_local_q"], out["gqa_local_k"] = np.array(layouts.local_q), np.array(layouts.local_k)
+    out["gqa_out"] = _full(flash_attention(gq, gkv, gkv))
+    out["gqa_dq"], out["gqa_dkv"] = _full(grads_[0]), _full(grads_[1])
+    out["gqa_kv_placements"] = np.array(str(list(grads_[1].placements)))
 
     # every other family on the model axis: loss and grads on its specs'
     # layout and this rank's slice of the global batch; one Trainer step
@@ -712,6 +722,7 @@ def case_model_axis(inp, rank, world):
         fb = {k: DTensor.from_local(v, mesh, [Shard(0), Replicate()], run_check=False)
               for k, v in local.items()}
         layouts.local_q.clear()
+        layouts.local_k.clear()
         with on_mesh(list(fd.values())):
             floss = ffn(fd, fb)
             fgrads = torch.autograd.grad(floss, list(fd.values()))
@@ -719,6 +730,7 @@ def case_model_axis(inp, rank, world):
         for k, g in zip(fd, fgrads):
             out[f"{arch}:g:{k[len('model.'):]}"] = _full(g)
         out[f"{arch}:flash_local_heads"] = np.array(sorted({q[1] for q in layouts.local_q}))
+        out[f"{arch}:flash_local_kv_heads"] = np.array(sorted({k[1] for k in layouts.local_k}))
         tr = Trainer(loss_fn, fm, TrainConfig(log_every=0, total_steps=1, optimizer=opt),
                      device="cpu", mesh=mesh, in_shardings=(layout, None))
         res = tr.train_step(local)
@@ -732,6 +744,7 @@ def case_model_axis(inp, rank, world):
         for axis, ops in tr.comm_by_axis.items():
             for op, rec in ops.items():
                 out[f"{arch}:comm:{axis}:{op}"] = np.array(rec["payload_bytes"])
+                out[f"{arch}:calls:{axis}:{op}"] = np.array(rec["calls"])
     return out
 
 
@@ -786,14 +799,12 @@ def case_expert_parallel(inp, rank, world):
 
 
 def _family_config(arch: str, **changes):
-    """The reduced f32 config of ``arch`` (granite with 2 KV heads, so that
-    the model axis of 2 divides them), as the tests build the reference's."""
+    """The reduced f32 config of ``arch``, as the tests build the
+    reference's (granite with its own 1 KV head, which a model axis of 2
+    does not divide)."""
     from repro_torch.configs import get_config, reduced
 
-    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32", **changes)
-    if cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, n_kv_heads=2)
-    return cfg
+    return dataclasses.replace(reduced(get_config(arch)), dtype="float32", **changes)
 
 
 def case_sharded_decode(inp, rank, world):
@@ -810,8 +821,9 @@ def case_sharded_decode(inp, rank, world):
     from repro_torch.analysis.census import CountCollectives
     from repro_torch.configs import ShapeConfig
     from repro_torch.core import PlanCache, Planner
-    from repro_torch.launch.steps import decode_shardings
+    from repro_torch.launch.steps import build_decode_step
     from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as sh
     from repro_torch.serving import Engine
 
     mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
@@ -819,19 +831,25 @@ def case_sharded_decode(inp, rank, world):
     slots, max_seq, new = int(inp["slots"]), int(inp["max_seq"]), int(inp["new_tokens"])
     prompts = [[int(t) for t in p if t >= 0] for p in inp["prompts"]]
 
-    def serve(tag, arch, n_slots, prompts_):
+    def serve(tag, arch, n_slots, prompts_, opts=()):
         cfg = _family_config(arch)
         model = build_model(cfg, device="cpu")
         model.load_state_dict({k[len(f"{arch}:p:"):]: torch.tensor(v) for k, v in inp.items()
                                if k.startswith(f"{arch}:p:")}, strict=True)
         shape = ShapeConfig("decode", max_seq, n_slots, "decode")
         frames = inp.get(f"{arch}:frames")
+        # build_decode_step's shardings (in the reference's order) set the
+        # rules its opts select, module-wide, for the engine's steps
+        p_sh, c_sh, tok_sh, pos_sh = build_decode_step(cfg, shape, mesh, opts=opts)[1]
         eng = Engine(model, max_slots=n_slots, max_seq=max_seq, frames=frames, mesh=mesh,
-                     step_shardings=decode_shardings(cfg, shape, mesh))
+                     step_shardings=(p_sh, tok_sh, c_sh, pos_sh))
         for prompt in prompts_:
             eng.submit(prompt, max_new_tokens=new)
         with CountCollectives() as counted:
             eng.step()
+        for axis, ops in counted.by_axis(mesh).items():
+            for op, rec in ops.items():
+                out[f"{tag}:comm:{axis}:{op}:calls"] = np.array(rec["calls"])
         logits = [eng.last_logits]
         while eng.pending or any(r is not None for r in eng.slot_req):
             eng.step()
@@ -856,6 +874,11 @@ def case_sharded_decode(inp, rank, world):
     out["long:cache_seq_split"] = np.array(all(
         t.placements[0] == Shard(2) and t.to_local().shape[2] == max_seq // 2
         for t in pytree.tree_leaves(eng.caches)))
+    # weight-stationary: one slot leaves data free, so the residual's
+    # features split over it and the activations' partial sums reduce there
+    serve("ws", "stablelm-3b", 1, prompts[:2], opts=("ws",))
+    out["ws:rules_model"] = np.array(str(sh.get_rules()["model"]))
+    sh.set_rules(sh.DEFAULT_RULES)
 
     # plan_scoring on the engine's mesh: plan_function(mesh=, in_shardings=)'s twin
     params = [torch.tensor(inp[f"w{i}"]) for i in range(3)]
