@@ -62,6 +62,14 @@ non-zero and print no result):
              lower measured peak; then two ``Trainer(plan_budget=...)`` steps
              beside two unplanned ones from the same weights and batches
              (same losses and grad norms, re-planning nothing);
+7b. policy — the ``"policy"`` backend, the BlockGraph default: stablelm-3b
+             at full width, ``POLICY_UNITS`` units, as a BlockGraph of the
+             embedding, one block a unit and the head with the loss
+             (``lm_blockgraph``), planned at the exact minimal budget;
+             ``"policy"``, ``"segment"`` and plain autograd: loss and grads
+             bitwise, each peak above resident state beside the DP's
+             (``"policy"``'s at or below ``"segment"``'s), ``flash_fwd``
+             launches against the design's count, step time;
 8. mesh    — sharded planning and data parallelism: the same loss at batch
              16 over an ``{data: 8}`` dict mesh (per-device all-cached peak
              and minimal budget against phase planned's, digests apart
@@ -86,7 +94,18 @@ non-zero and print no result):
              2e-4, planned bitwise plain), every rank's kernels on 16
              heads, the first step's collectives by axis against the count
              from the shapes, parameters + AdamW per process against
-             ``launch.specs`` (FSDP: its forced layout's); then
+             ``launch.specs`` (FSDP: its forced layout's); the FSDP
+             Trainer with ``compress_grads`` against one process's
+             compressed Trainer (its step-1 codec bitwise the global codec
+             of the gathered gradient); ``plan_function(strategies=)`` on
+             the loss at the minimal per-device budget (offload bitwise the
+             mesh's vanilla, pinned host bytes against the offloaded local
+             bytes; a quantizing plan within ``QUANT_BOUND``); a
+             dropout MLP at width 2560 whose default plan recomputes its
+             draws, bitwise plain autograd (and which DTensor RNG path the
+             card took); ``hierarchical_psum`` on ``{pod: 2, data: 2}``
+             against one process's reference arithmetic, its collectives
+             by axis; then
              the per-device state of qwen2.5-14b, qwen3-moe-30b-a3b and
              mistral-large-123b on ``{data: 16, model: 16}`` (meta device);
 9b. production — the production meshes (after phase axis_serve): the
@@ -126,17 +145,19 @@ non-zero and print no result):
              grads bitwise, the extra ``flash_fwd`` launches, a lower
              peak), the serving launcher as phase serve runs it, and
              decode against the forward on 8 tokens (no route dropped);
-13. hybrid — zamba2-2.7b (9 units of 6 Mamba2 blocks and the shared
-             attention block on ``concat(h, h0)``): the launcher, the
-             serving launcher, decode against the forward on 128 tokens
-             (the limits hold each block decoded on the forward's inputs,
-             the logits the greedy agreement), and ``plan_function`` on
+13. hybrid — zamba2-2.7b (units of 6 Mamba2 blocks and the shared
+             attention block on ``concat(h, h0)``; 9 at full depth): the
+             launcher, a profiled step, the serving launcher and decode
+             against the forward on 128 tokens (the limits hold each block
+             decoded on the forward's inputs, the logits the greedy
+             agreement) at ``HYBRID_UNITS`` units, and ``plan_function`` on
              its non-chain graph at 1 unit;
-14. xlstm  — xlstm-1.3b (6 units of 7 mLSTM blocks and 1 sLSTM block,
-             heads of 512, no attention): the launcher at full width and
-             depth, a profiled step, the serving launcher, decode against
-             the forward (held block by block), ``plan_function`` at 1 unit
-             on 512 tokens; no kernel launch anywhere;
+14. xlstm  — xlstm-1.3b (units of 7 mLSTM blocks and 1 sLSTM block, heads
+             of 512, no attention; 6 at full depth): the launcher, a
+             profiled step, the serving launcher and decode against the
+             forward (held block by block) at full width and
+             ``XLSTM_UNITS`` units, ``plan_function`` at 1 unit on 512
+             tokens; no kernel launch anywhere;
 15. whisper — whisper-small (12 + 12 layers): the Trainer on frames at
              batch 8 (1500 frames, 448 tokens; the launcher has no frames),
              the serving launcher with one clip a slot (the encoder runs
@@ -171,6 +192,9 @@ TRADE_UNITS = 8
 # the planned phase's depth: planning time grows steeply with the node count
 # (603 nodes at 8 units); width is never cut
 PLANNED_UNITS = 8
+# phase policy: the depth of stablelm-3b as a BlockGraph (full width): the
+# embedding, this many unit blocks and the head with the loss
+POLICY_UNITS = 8
 # phase mesh: the accounting's mesh and global batch (the batch sharded over
 # data: 2 sequences a device, as phase planned's unsharded batch), and the
 # depth of the two processes that share the card over gloo
@@ -188,6 +212,11 @@ MODEL_AXIS_BATCH = 2
 MODEL_AXIS_STEPS = 3
 MODEL_AXIS_BIG = ("qwen2.5-14b", "qwen3-moe-30b-a3b", "mistral-large-123b")
 MODEL_AXIS_BIG_MESH = {"data": 16, "model": 16}
+# phase model_axis's checks of recomputed draws and hierarchical_psum on
+# the same four processes: the dropout MLP's depth at stablelm-3b's width,
+# and each rank's input of hierarchical_psum on {pod: 2, data: 2}
+MESH_DROPOUT_DEPTH = 4
+PSUM_SHAPE = (4096, 1024)
 # phase axis_serve, on MODEL_AXIS_MESH at global batch MODEL_AXIS_BATCH:
 # stablelm-3b and granite 2 units deep; stablelm's engine (slots, cache
 # length, requests, new tokens); its KV cache a rank: 2 units x k, v x 4
@@ -235,8 +264,12 @@ MOE_PLANNED_UNITS = 4
 # routes on the H100: at random init the tokens' router inputs grow alike
 # with depth and pick the same experts (PERF.md §6, ROADMAP.md §3)
 MOE_TEACHER_TOKENS = 8
-# phase hybrid: the front door's depth (one unit: 6 Mamba2 blocks and the
-# shared block; planning time grows steeply with the node count)
+# phase hybrid: the depth of the launcher, the profiled step, serving and
+# teacher forcing (full width; 9 units at full depth: cut to keep the
+# script inside its time limit, PERF.md §6), and the front door's
+# depth (one unit: 6 Mamba2 blocks and the shared block; planning time
+# grows steeply with the node count)
+HYBRID_UNITS = 1
 HYBRID_PLANNED_UNITS = 1
 # phase xlstm: the front door's depth (one unit: 7 mLSTM blocks and the sLSTM
 # block); decode held block by block: at random init the 48 blocks amplify
@@ -244,6 +277,10 @@ HYBRID_PLANNED_UNITS = 1
 # agreement 0.60, while f32's was 1.5e-4)
 XLSTM_PLANNED_UNITS = 1
 XLSTM_BLOCKWISE = True
+# the depth of phase xlstm's launcher, profiled step, serving and teacher
+# forcing (full width; 6 units at full depth: cut for the time limit, as
+# HYBRID_UNITS)
+XLSTM_UNITS = 1
 # the xLSTM front door's sequence: 2 chunks of 256 (1,394 nodes; at 1024
 # tokens its 2,332 nodes took 376 s to plan on the H100's host, and at 256
 # tokens the plan lowered no measured peak)
@@ -1139,6 +1176,137 @@ def phase_planned(results, state):
     check(worst <= 1e-3, "the planned Trainer's losses or grad norms differ beyond rtol 1e-3")
 
 
+def lm_blockgraph(n: int = POLICY_UNITS, base=None, device: str = "cuda", seq: int = 1024):
+    """stablelm-3b (or ``base``) at full width and ``n`` units as a
+    BlockGraph of the port's modules: the embedding, one block a unit and
+    the head with the loss (its output is the scalar loss); weights from
+    seed 0 on ``device``, batch 0 of the synthetic stream (2 x ``seq``).
+    Returns the BlockGraph, its params by block, its inputs and the loss
+    over its output."""
+    import dataclasses
+
+    import torch
+    from torch.func import functional_call
+
+    configs = importlib.import_module("repro_torch.configs")
+    models = importlib.import_module("repro_torch.models")
+    layers = importlib.import_module("repro_torch.models.layers")
+    data = importlib.import_module("repro_torch.data")
+    blockgraph = importlib.import_module("repro_torch.core.blockgraph")
+    dev = torch.device(device)
+    cfg = dataclasses.replace(base or configs.get_config("stablelm-3b"), n_layers=n)
+    model = models.build_model(cfg, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    dt = cfg.activation_dtype
+
+    def embed(p, tokens):
+        return layers.embed(p["embed"], tokens, dt)
+
+    def unit_block(i):
+        unit = model.layers[i]
+
+        def apply(p, h):
+            positions = torch.arange(h.shape[1], device=h.device)[None, :]
+            return functional_call(unit, p, (h, positions))
+
+        return blockgraph.Block(f"u{i}", apply, ("embed" if i == 0 else f"u{i - 1}",))
+
+    def head(p, h, labels):
+        logits = layers.unembed(p["unembed"], layers.rmsnorm(p["scale"], h))
+        return layers.softmax_xent(logits[:, :-1], labels[:, 1:])
+
+    bg = blockgraph.BlockGraph(
+        [blockgraph.Block("embed", embed, ("tokens",)),
+         *[unit_block(i) for i in range(n)],
+         blockgraph.Block("head", head, (f"u{n - 1}", "labels"))],
+        ["tokens", "labels"], ["head"])
+    params = {"embed": {"embed": model.embedding.embed},
+              **{f"u{i}": dict(model.layers[i].named_parameters()) for i in range(n)},
+              "head": {"scale": model.final_norm.scale, "unembed": model.head.unembed}}
+    stream = data.SyntheticLM(data.DataConfig(cfg.vocab_size, seq, 2))
+    inputs = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(0).items()}
+    return bg, params, inputs, (lambda loss: loss)
+
+
+def phase_policy(results):
+    """The ``"policy"`` backend (the BlockGraph default) on stablelm-3b at
+    full width, ``POLICY_UNITS`` units as a BlockGraph (``lm_blockgraph``),
+    planned at the exact minimal budget: ``"policy"``, ``"segment"`` and
+    plain autograd, loss and grads bitwise; each run's peak above resident
+    state beside the DP's peak, its ``flash_fwd`` launches against the
+    design's count (every segment runs as a region whose backward reruns its
+    units' internals, the attention included: one more launch a unit), and
+    its time."""
+    import gc
+
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    gc.collect()
+    torch.cuda.empty_cache()
+    bg, params, inputs, loss_fn = lm_blockgraph()
+    n = POLICY_UNITS
+    t0 = time.perf_counter()
+    pf = lowering.plan_function(bg, None, loss_fn=loss_fn)
+    low = pf.lowered_for(params, inputs)
+    plan_s = time.perf_counter() - t0
+    plan, names = low.plan, [b.name for b in bg.blocks]
+    g = low.carrier.to_graph()
+    print(f"[policy] stablelm-3b at {n} units as a BlockGraph of {len(bg.blocks)} blocks: "
+          f"planned in {plan_s:.2f} s at the exact minimal budget {low.report.budget:.6e} B "
+          f"(all cached {sum(g.mem_v):.6e} B); backend {low.backend}; DP peak "
+          f"{plan.peak_memory:.6e} B, overhead {plan.overhead:g}; segments "
+          f"{[[names[v] for v in sorted(s.nodes)] for s in plan.segments]}; cached (U_k) "
+          f"{[names[v] for v in sorted(plan.cached)]}")
+    check(low.backend == "policy", "auto did not resolve to the policy backend")
+    twins = {"policy": pf,
+             "segment": lowering.get_lowering("segment").lower(low.carrier, plan),
+             "plain": lowering.vanilla_value_and_grad(bg, loss_fn)}
+    # every unit reruns once under both planned backends (module doc of
+    # core/lowering/policy.py), none under plain autograd
+    predicted = {"policy": 2 * n, "segment": 2 * n, "plain": n}
+    runs = {}
+    for tag, twin in twins.items():
+        twin(params, inputs)  # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        t0 = time.perf_counter()
+        loss, grads = twin(params, inputs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - before
+        # the bytes the program asked for, before the allocator rounds each
+        # block up (its slack depends on the order of the allocations)
+        asked = torch.cuda.memory_stats()["requested_bytes.all.peak"] - requested
+        runs[tag] = (loss, grads, asked, dict(fa.LAUNCHES), ms)
+        print(f"[policy] {tag:7s}: loss {loss.item():.8f}; peak above resident state {peak} B "
+              f"allocated, {asked} B requested (DP peak {plan.peak_memory:.6e} B); launches "
+              f"{json.dumps(runs[tag][3])} (flash_fwd predicted {predicted[tag]}); {ms:.1f} ms")
+    leaves = {tag: torch.utils._pytree.tree_leaves(r[:2]) for tag, r in runs.items()}
+    for tag in ("policy", "segment"):
+        same = all(torch.equal(a, b) for a, b in zip(leaves[tag], leaves["plain"]))
+        print(f"[policy] {tag} loss and grads bitwise plain autograd: {same}")
+        check(same, f"the {tag} twin's loss or grads differ from plain autograd")
+    for tag, r in runs.items():
+        check(r[3]["flash_fwd"] == predicted[tag],
+              f"{tag}'s flash_fwd launches differ from the design's count")
+        check(r[3]["flash_bwd_dq"] == r[3]["flash_bwd_dkv"] == n,
+              f"{tag}'s backward kernels did not run once a unit")
+    check(runs["policy"][2] <= runs["segment"][2],
+          "the policy twin's requested peak is above the segment twin's")
+    results["flash_fwd"]["policy_launches"] = runs["policy"][3]["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        results[name]["policy_launches"] = runs["policy"][3][name]
+    del runs, leaves, twins, pf, low, params, inputs, bg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def torchrun(nproc: int, args: list, timeout: float = 600, module: str = "repro_torch.launch.train"
              ) -> dict:
     """``torchrun --standalone --nproc_per_node nproc -m module args`` in a
@@ -1456,6 +1624,177 @@ def route_gloo_cuda_collectives(key: str = "CUDA") -> None:
     route_gloo_cuda_collectives.lib = lib  # the registrations live with it
 
 
+def _counted(batches, watched):
+    """``batches``, setting ``watched.step`` to each batch's index first."""
+    for i, b in enumerate(batches):
+        watched.step = i
+        yield b
+
+
+def mesh_strategies(step_loss, params, batch, mesh) -> dict:
+    """Phase model_axis, each rank: ``plan_function(strategies=)`` on the
+    tensor-parallel loss at the minimal per-device budget, memory-centric
+    (phase strategies' setting): an offload-only plan bitwise the mesh's
+    vanilla, with the pinned host bytes this rank copied against the plan's
+    offloaded local bytes (its ``M_v``); a quantize-only plan, and a plan
+    that may do both, within ``QUANT_BOUND`` of vanilla (bitwise where
+    it quantizes nothing)."""
+    import torch
+
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    storage = importlib.import_module("repro_torch.core.lowering.storage")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    out = {}
+    host, host_bytes = [], storage.host_bytes
+
+    def counted(t, memo=None):
+        h = host_bytes(t, memo)
+        if not any(h is x for x in host):
+            host.append(h)
+        return h
+
+    vanilla = None
+    for tag, strategies in (("offload", ("store", "recompute", "offload")),
+                            ("quantize", ("store", "recompute", "quantize")),
+                            ("offload_quantize", ("store", "recompute", "offload", "quantize"))):
+        t0 = time.perf_counter()
+        pf = lowering.plan_function(step_loss, None, mesh=mesh, in_shardings=(None, None),
+                                    strategies=strategies, method="approx_dp",
+                                    objective="memory_centric")
+        low = pf.lowered_for(params, batch)
+        plan_s = time.perf_counter() - t0
+        if vanilla is None:
+            vanilla = lowering.vanilla_traced_value_and_grad(low.carrier)(params, batch)
+        g = low.carrier.to_graph()
+        codes = collections.Counter(low.plan.strategy.values())
+        storage.host_bytes = counted
+        try:
+            host.clear()
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t1 = time.perf_counter()
+            got = pf(params, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            launches = dict(fa.LAUNCHES)
+        finally:
+            storage.host_bytes = host_bytes
+        pinned = sum(h.numel() for h in host if h.is_pinned())
+        host.clear()
+        same = all(torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+            torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(vanilla)))
+        lerr = abs(got[0].full_tensor().item() - vanilla[0].full_tensor().item()) / abs(
+            vanilla[0].full_tensor().item())
+        gerr = max(float((a.full_tensor().float() - b.full_tensor().float()).norm()
+                         / b.full_tensor().float().norm().clamp_min(1e-30))
+                   for a, b in zip(got[1].values(), vanilla[1].values()))
+        out[tag] = {
+            "plan_s": plan_s, "codes": dict(codes), "ms": ms, "pinned_bytes": pinned,
+            "launches": launches,
+            "offloaded_bytes": sum(g.nodes[v].memory for v, c in low.plan.strategy.items()
+                                   if c == "offload"),
+            "quantized_bytes": sum(g.nodes[v].memory for v, c in low.plan.strategy.items()
+                                   if c == "quantize"),
+            "dp_peak": low.plan.peak_memory, "bitwise": same, "loss_rel": lerr,
+            "grads_rel_l2": gerr, "nodes": g.n}
+        del pf, low, got
+    return out
+
+
+def mesh_dropout(mesh) -> dict:
+    """Phase model_axis, each rank: a dropout MLP at stablelm-3b's width
+    (``MESH_DROPOUT_DEPTH`` layers of 2560 x 2560 on 2 x 1024 tokens, the
+    batch over data) whose default plan recomputes its ``bernoulli`` nodes,
+    against plain autograd through the traced nodes (each drawn once) on
+    the same generator state; and which RNG path DTensor took."""
+    import torch
+    from torch.distributed.tensor import _random
+
+    lowering = importlib.import_module("repro_torch.core.lowering")
+    fx_graph = importlib.import_module("repro_torch.core.fx_graph")
+    prims = importlib.import_module("repro_torch.core.prims")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ws = [torch.randn(2560, 2560, device=dev, generator=gen) * 2560 ** -0.5
+          for _ in range(MESH_DROPOUT_DEPTH)]
+    x = torch.randn(2, 1024, 2560, device=dev, generator=gen)
+
+    def dropout_mlp(ws, x):
+        h = x
+        for w in ws:
+            h = torch.nn.functional.dropout(torch.tanh(h @ w), 0.5, training=True)
+        return torch.sum(h * h)
+
+    pf = lowering.plan_function(dropout_mlp, None, mesh=mesh,
+                                in_shardings=(None, ("data", None, None)))
+    low = pf.lowered_for(ws, x)
+    fxg = low.carrier.fx
+    redrawn = [fxg.nodes[v].name for s in low.plan.segments for v in s.recompute
+               if fx_graph.op_name(fxg.nodes[v].target) in prims.ATEN_PRNG]
+    torch.manual_seed(7)
+    got = pf(ws, x)
+    torch.manual_seed(7)
+    want = lowering.vanilla_traced_value_and_grad(low.carrier, low.plan)(ws, x)
+    same = all(torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+        torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)))
+    tracker = _random._rng_tracker
+    return {"redrawn": redrawn, "bitwise": same, "loss": got[0].full_tensor().item(),
+            "tracker": type(tracker).__name__ if tracker is not None else None,
+            "tracker_keeps_states": hasattr(tracker, "rng_states")}
+
+
+def psum_inputs(dev) -> list:
+    """The four ranks' inputs of phase model_axis's ``hierarchical_psum``."""
+    import torch
+
+    return [torch.randn(PSUM_SHAPE, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(100 + r))
+            for r in range(4)]
+
+
+def psum_reference(xs) -> "torch.Tensor":
+    """The reference's ``hierarchical_psum`` arithmetic on ``{pod: 2, data:
+    2}``, in one process (rank = pod * 2 + data): each pod's data sum cut
+    into its data chunks, each chunk's int8 payloads summed over the pods
+    and scaled by the pods' mean scale, the chunks put back together."""
+    import torch
+
+    comp = importlib.import_module("repro_torch.optim.compression")
+    chunks = []
+    for d in range(2):
+        cs = []
+        for p in range(2):
+            s = xs[2 * p].chunk(2)[d] + xs[2 * p + 1].chunk(2)[d]
+            cs.append(comp.compress(s))
+        qsum = cs[0].q.to(torch.int32) + cs[1].q.to(torch.int32)
+        ssum = cs[0].scale + cs[1].scale
+        n = xs[0].chunk(2)[d].numel()
+        chunks.append((qsum.float() * (ssum / 2)[:, None]).reshape(-1)[:n].reshape(
+            xs[0].chunk(2)[d].shape))
+    return torch.cat(chunks)
+
+
+def mesh_psum(rank: int) -> dict:
+    """Phase model_axis, each rank: ``hierarchical_psum`` on ``{pod: 2, data:
+    2}`` over the same four processes; its output's digest and its
+    collectives by axis."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    comp = importlib.import_module("repro_torch.optim.compression")
+    census = importlib.import_module("repro_torch.analysis.census")
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("pod", "data"))
+    x = psum_inputs(torch.device("cuda"))[rank]
+    with census.CountCollectives() as counted:
+        y = comp.hierarchical_psum(x, mesh)
+        torch.cuda.synchronize()
+    ref = psum_reference(psum_inputs(torch.device("cuda")))
+    return {"bitwise": torch.equal(y, ref), "max_abs_exact": float(
+        (y - sum(psum_inputs(torch.device("cuda")))).abs().max()),
+            "comm": {axis: {op: [rec["calls"], rec["payload_bytes"]] for op, rec in ops.items()}
+                     for axis, ops in counted.by_axis(mesh).items()}}
+
+
 def model_axis_worker(out_dir: Path) -> int:
     """One of phase model_axis's processes (under ``torch.distributed.run``):
     the mesh over the gloo group, three Trainers on this rank's slice of the
@@ -1473,6 +1812,7 @@ def model_axis_worker(out_dir: Path) -> int:
     sh = importlib.import_module("repro_torch.parallel.sharding")
     lowering = importlib.import_module("repro_torch.core.lowering")
     train = importlib.import_module("repro_torch.train")
+    train_loop = importlib.import_module("repro_torch.train.loop")
     import faulthandler
 
     faulthandler.enable()
@@ -1517,22 +1857,46 @@ def model_axis_worker(out_dir: Path) -> int:
             in_shardings=(shardings, None))
         return want, tr
 
+    codec = train_loop.roundtrip_leaf_with_feedback
+    codec_checks = []
+
+    def watched_codec(g, e):
+        """The Trainer's codec; at step 1 held against the global codec of
+        the gathered gradient and error feedback."""
+        got = codec(g, e)
+        if watched_codec.step == 0:
+            want = codec(g.full_tensor(), e.full_tensor())
+            codec_checks.append(all(
+                torch.equal(a.to_local(), sh.place(b, mesh, sh.normalize_spec(a)).to_local())
+                for a, b in zip(got, want)))
+        return got
+
     for tag, fsdp, planned in (("plain", False, False), ("planned", False, True),
-                               ("fsdp", True, False)):
+                               ("fsdp", True, False), ("fsdp_compressed", True, False)):
         kw = {}
         if planned:  # the minimal per-device budget of the sharded trace
             step_loss, params = train.functional_loss(out_tr.loss_fn, out_tr.model)
-            probe = lowering.plan_function(step_loss, None, mesh=mesh, in_shardings=(None, None))
             b0 = {k: torch.as_tensor(v, device="cuda") for k, v in stream.batch(0).items()}
-            kw["plan_budget"] = probe.lowered_for(params, out_tr._place_batch(b0)).plan.peak_memory
+            b0 = out_tr._place_batch(b0)
+            probe = lowering.plan_function(step_loss, None, mesh=mesh, in_shardings=(None, None))
+            kw["plan_budget"] = probe.lowered_for(params, b0).plan.peak_memory
             out["planned_budget"] = kw["plan_budget"]
-            del out_tr, probe, params
+            del probe
+            out["strategies"] = mesh_strategies(step_loss, params, b0, mesh)
+            del out_tr, params, b0
+        if tag == "fsdp_compressed":
+            kw["compress_grads"] = True
         want_state, tr = trainer(fsdp, **kw)
+        train_loop.roundtrip_leaf_with_feedback = watched_codec
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
         heads.clear()
-        res = tr.run(stream.batch(i) for i in range(MODEL_AXIS_STEPS))
+        try:
+            res = tr.run(_counted((stream.batch(i) for i in range(MODEL_AXIS_STEPS)),
+                                  watched_codec))
+        finally:
+            train_loop.roundtrip_leaf_with_feedback = codec
         torch.cuda.synchronize()
         out[tag] = {
             "losses": res["losses"], "grad_norms": res["grad_norms"],
@@ -1550,6 +1914,10 @@ def model_axis_worker(out_dir: Path) -> int:
             out_tr = tr
         else:
             del tr
+    out["fsdp_compressed"]["step1_codec_bitwise"] = bool(codec_checks) and all(codec_checks)
+    out["fsdp_compressed"]["codec_leaves"] = len(codec_checks)
+    out["dropout"] = mesh_dropout(mesh)
+    out["psum"] = mesh_psum(rank)
     (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
     if rank == 0:
         print("summary: " + json.dumps({"ranks": dist.get_world_size()}), flush=True)
@@ -1640,17 +2008,27 @@ def phase_model_axis(results):
     cfg, model, loss_fn = model_axis_setup()
     dc = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
                          global_batch=MODEL_AXIS_BATCH, num_hosts=MODEL_AXIS_MESH["data"])
-    tr = train.Trainer(loss_fn, model, train.TrainConfig(total_steps=MODEL_AXIS_STEPS,
-                                                         log_every=0), device="cuda")
-    single = tr.run(data.global_batch_for_test(dc, i) for i in range(MODEL_AXIS_STEPS))
-    del tr, model
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    singles = {}
+    for compress in (False, True):
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(weights[k])
+        tr = train.Trainer(loss_fn, model, train.TrainConfig(
+            total_steps=MODEL_AXIS_STEPS, log_every=0, compress_grads=compress), device="cuda")
+        singles[compress] = tr.run(data.global_batch_for_test(dc, i)
+                                   for i in range(MODEL_AXIS_STEPS))
+        del tr
+        print(f"[model_axis] meshless Trainer on the global batch"
+              f"{', compress_grads' if compress else ''}: losses {singles[compress]['losses']}, "
+              f"grad norms {singles[compress]['grad_norms']}")
+    del model, weights
     torch.cuda.empty_cache()
-    print(f"[model_axis] meshless Trainer on the global batch: losses {single['losses']}, "
-          f"grad norms {single['grad_norms']}")
     heads = cfg.n_heads // MODEL_AXIS_MESH["model"]
     for r in ranks:
-        for tag in ("plain", "planned", "fsdp"):
+        for tag in ("plain", "planned", "fsdp", "fsdp_compressed"):
             x = r[tag]
+            single = singles[tag == "fsdp_compressed"]
             worst = max(abs(a - b) / abs(b) for a, b in zip(x["losses"], single["losses"]))
             print(f"[model_axis] rank {r['rank']} {tag:7s}: losses {x['losses']} (worst "
                   f"relative gap {worst:.3e}); step seconds "
@@ -1658,7 +2036,7 @@ def phase_model_axis(results):
                   f"{json.dumps(x['launches'])}; q heads {x['q_heads']}; peak "
                   f"{x['peak_bytes']} B; resident {x['resident_bytes']} B; parameters + "
                   f"AdamW {x['state_bytes']} B against its layout's {x['layout_state_bytes']} B "
-                  f"({'FSDP forced' if tag == 'fsdp' else 'specs.state_bytes_per_device'})")
+                  f"({'FSDP forced' if tag.startswith('fsdp') else 'specs.state_bytes_per_device'})")
             check(worst < 1e-4, f"rank {r['rank']}'s {tag} losses differ from the meshless "
                   "Trainer's beyond 1e-4")
             gworst = max(abs(a - b) / abs(b)
@@ -1680,6 +2058,48 @@ def phase_model_axis(results):
         check(r["planned"]["losses"] == r["plain"]["losses"]
               and r["planned"]["grad_norms"] == r["plain"]["grad_norms"],
               "the planned Trainer is not bitwise the plain one")
+        comp_ = r["fsdp_compressed"]
+        print(f"[model_axis] rank {r['rank']} fsdp_compressed: step 1 codec bitwise the "
+              f"global codec of the gathered gradient on {comp_['codec_leaves']} leaves: "
+              f"{comp_['step1_codec_bitwise']}")
+        check(comp_["step1_codec_bitwise"] and comp_["codec_leaves"] == len(
+            comp_["local_param_bytes"]), f"rank {r['rank']}'s step-1 codec is not the global "
+              "codec")
+        for tag, st in r["strategies"].items():
+            print(f"[model_axis] rank {r['rank']} strategies {tag}: {st['nodes']} nodes "
+                  f"planned in {st['plan_s']:.2f} s, {st['codes']}, DP peak "
+                  f"{st['dp_peak']:.6e} B; pinned host bytes {st['pinned_bytes']} against "
+                  f"the plan's offloaded local bytes {st['offloaded_bytes']:.6e} (quantized "
+                  f"{st['quantized_bytes']:.6e}); bitwise the mesh's vanilla {st['bitwise']}; "
+                  f"loss rel {st['loss_rel']:.3e}, grads rel l2 {st['grads_rel_l2']:.3e}; "
+                  f"{st['ms']:.1f} ms; launches {json.dumps(st['launches'])}")
+        off = r["strategies"]["offload"]
+        check(off["codes"].get("offload", 0) > 0 and off["pinned_bytes"] > 0,
+              "the offload plan offloaded nothing to pinned host memory")
+        check(off["bitwise"], f"rank {r['rank']}'s offload plan differs from the mesh's vanilla")
+        check(r["strategies"]["quantize"]["codes"].get("quantize", 0) > 0,
+              "the quantize plan quantizes nothing")
+        for tag in ("quantize", "offload_quantize"):
+            st = r["strategies"][tag]
+            if st["codes"].get("quantize"):
+                check(st["loss_rel"] <= QUANT_BOUND and st["grads_rel_l2"] <= QUANT_BOUND,
+                      f"rank {r['rank']}'s {tag} plan is outside {QUANT_BOUND}")
+            else:
+                check(st["bitwise"], f"rank {r['rank']}'s {tag} plan differs from vanilla")
+        d = r["dropout"]
+        print(f"[model_axis] rank {r['rank']} dropout MLP: default plan recomputes "
+              f"{len(d['redrawn'])} bernoulli nodes; bitwise plain autograd {d['bitwise']}; "
+              f"loss {d['loss']:.6f}; DTensor RNG tracker {d['tracker']} (keeps states of its "
+              f"own: {d['tracker_keeps_states']})")
+        check(bool(d["redrawn"]) and d["bitwise"],
+              f"rank {r['rank']}'s dropout plan recomputes no draw or differs from plain autograd")
+        ps = r["psum"]
+        print(f"[model_axis] rank {r['rank']} hierarchical_psum on {{pod: 2, data: 2}}: "
+              f"bitwise one process's reference arithmetic {ps['bitwise']}; max |gap| to the "
+              f"exact sum {ps['max_abs_exact']:.4e}; collectives [calls, payload B] by axis "
+              f"{ps['comm']}")
+        check(ps["bitwise"], f"rank {r['rank']}'s hierarchical_psum differs from the reference's "
+              "arithmetic")
         check(r["fsdp"]["state_bytes"] < r["plain"]["state_bytes"],
               "FSDP did not shard the state further")
         want = expected_collectives(cfg, r["plain"]["local_param_bytes"],
@@ -1694,6 +2114,8 @@ def phase_model_axis(results):
           f"Trainer bitwise the plain one on every rank")
     for name in fa.KERNELS:
         results[name]["model_axis_launches"] = [r["plain"]["launches"][name] for r in ranks]
+        results[name]["mesh_strategies_launches"] = [
+            sum(st["launches"][name] for st in r["strategies"].values()) for r in ranks]
 
     # accounting only: the configs one card cannot hold, on the meta device
     for arch in MODEL_AXIS_BIG:
@@ -3157,7 +3579,7 @@ def blockwise_gaps(model, toks) -> list:
 
 
 def teacher_forcing(tag: str, arch: str, n_tokens: int, blockwise: bool = False,
-                    seed: int = 5) -> None:
+                    seed: int = 5, units: int = None) -> None:
     """Step-by-step decode of ``n_tokens`` tokens against ``LM.forward`` at
     full width, in f32 and bf16, under the ``TEACHER_*`` limits; the forward
     launches ``flash_fwd`` once per attention block (once a unit).  An MoE
@@ -3181,7 +3603,7 @@ def teacher_forcing(tag: str, arch: str, n_tokens: int, blockwise: bool = False,
     configs = importlib.import_module("repro_torch.configs")
     models = importlib.import_module("repro_torch.models")
     dev = torch.device("cuda")
-    base = configs.get_config(arch)
+    base = cut_depth(configs.get_config(arch), units)
     toks = torch.randint(0, base.vocab_size, (1, n_tokens),
                          generator=torch.Generator().manual_seed(seed)).to(dev)
     for dtn in ("float32", "bfloat16"):
@@ -3265,8 +3687,9 @@ def phase_serve(results):
     teacher_forcing("serve", "stablelm-3b", TEACHER_TOKENS)
 
 
-def family_launcher(results, tag: str, arch: str):
-    """``repro_torch.launch.train`` at full width and depth of ``arch`` for 3
+def family_launcher(results, tag: str, arch: str, units: int = None):
+    """``repro_torch.launch.train`` at full width of ``arch``, at full depth
+    or ``units`` units (``--layers``), for 3
     steps (batch 2, seq 1024), budgeted from the card's memory: plan, step
     times, peak against the card, the kernels' launches (one attention
     block a unit), finite losses and, for an MoE, the share of routes
@@ -3281,12 +3704,13 @@ def family_launcher(results, tag: str, arch: str):
     moe = importlib.import_module("repro_torch.models.moe")
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = configs.get_config(arch)
+    cfg = cut_depth(configs.get_config(arch), units)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     kept, undo = routes_watched()
     try:
-        out = train.main(["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "1024"])
+        out = train.main(["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "1024",
+                          "--layers", str(cfg.n_layers)])
     finally:
         undo()
     counts = dict(fa.LAUNCHES)
@@ -3437,35 +3861,53 @@ def phase_moe(results):
     teacher_forcing("moe", arch, MOE_TEACHER_TOKENS)
 
 
+def cut_depth(cfg, units: int = None):
+    """``cfg`` at ``units`` units (the same layers a unit), full width; the
+    whole depth for None."""
+    import dataclasses
+
+    if units is None:
+        return cfg
+    models = importlib.import_module("repro_torch.models")
+    per_unit = cfg.n_layers // models.unit_pattern(cfg)[1]
+    return dataclasses.replace(cfg, n_layers=units * per_unit)
+
+
 def phase_hybrid(results):
-    """zamba2-2.7b: the launcher at full width and depth (9 units of 6
-    Mamba2 blocks and the shared block), the serving launcher, teacher
-    forcing, and the front door on its non-chain graph at 1 unit."""
+    """zamba2-2.7b at full width: the launcher, a profiled step, the
+    serving launcher and teacher forcing at ``HYBRID_UNITS`` units of 6
+    Mamba2 blocks and the shared block (9 at full depth), and the front
+    door on its non-chain graph at 1 unit."""
     arch = "zamba2-2.7b"
     configs = importlib.import_module("repro_torch.configs")
-    sp = family_launcher(results, "hybrid", arch)
-    profile_step("hybrid", configs.get_config(arch), sp.sizes, sp.remat)
-    _, counts = serve_run("hybrid", ["--arch", arch] + SERVE_ARGS)
+    cfg = cut_depth(configs.get_config(arch), HYBRID_UNITS)
+    sp = family_launcher(results, "hybrid", arch, HYBRID_UNITS)
+    profile_step("hybrid", cfg, sp.sizes, sp.remat)
+    _, counts = serve_run("hybrid", ["--arch", arch, "--layers", str(cfg.n_layers)]
+                          + SERVE_ARGS)
     for name in counts:
         results[name]["hybrid_serve_launches"] = counts[name]
-    teacher_forcing("hybrid", arch, TEACHER_TOKENS, blockwise=True)
+    teacher_forcing("hybrid", arch, TEACHER_TOKENS, blockwise=True, units=HYBRID_UNITS)
     front_door(results, "hybrid", arch, HYBRID_PLANNED_UNITS)
 
 
 def phase_xlstm(results):
-    """xlstm-1.3b (6 units of 7 mLSTM blocks and 1 sLSTM block, no
-    attention): the launcher at full width and depth, a profiled step, the
-    serving launcher, teacher forcing, and the front door at 1 unit; no
-    kernel launches anywhere."""
+    """xlstm-1.3b (7 mLSTM blocks and 1 sLSTM block a unit, no attention)
+    at full width: the launcher, a profiled step, the serving launcher and
+    teacher forcing at ``XLSTM_UNITS`` units (6 at full depth), and the
+    front door at 1 unit; no kernel launches anywhere."""
     arch = "xlstm-1.3b"
     configs = importlib.import_module("repro_torch.configs")
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    sp = family_launcher(results, "xlstm", arch)
-    profile_step("xlstm", configs.get_config(arch), sp.sizes, sp.remat)
-    _, counts = serve_run("xlstm", ["--arch", arch] + SERVE_ARGS)
+    cfg = cut_depth(configs.get_config(arch), XLSTM_UNITS)
+    sp = family_launcher(results, "xlstm", arch, XLSTM_UNITS)
+    profile_step("xlstm", cfg, sp.sizes, sp.remat)
+    _, counts = serve_run("xlstm", ["--arch", arch, "--layers", str(cfg.n_layers)]
+                          + SERVE_ARGS)
     for name in counts:
         results[name]["xlstm_serve_launches"] = counts[name]
-    teacher_forcing("xlstm", arch, TEACHER_TOKENS, blockwise=XLSTM_BLOCKWISE)
+    teacher_forcing("xlstm", arch, TEACHER_TOKENS, blockwise=XLSTM_BLOCKWISE,
+                    units=XLSTM_UNITS)
     front_door(results, "xlstm", arch, XLSTM_PLANNED_UNITS, seq=XLSTM_PLANNED_SEQ)
     check(not any(results[name][key] for name in fa.KERNELS
                   for key in ("xlstm_launches", "xlstm_serve_launches",
@@ -3700,6 +4142,7 @@ def main() -> int:
         ("profile", lambda: phase_profile(state)),
         ("trade", lambda: phase_trade(state)),
         ("planned", lambda: phase_planned(results, state)),
+        ("policy", lambda: phase_policy(results)),
         ("mesh", lambda: phase_mesh(results, state)),
         ("model_axis", lambda: phase_model_axis(results)),
         ("axis_serve", lambda: phase_axis_serve(results)),

@@ -7,7 +7,7 @@ derives, without running the model on real data, the paper's ``Graph``
 (``M_v`` from fake-mode output shapes, ``T_v`` from the 10/1 model or
 analytic FLOPs) and runs it vanilla or under a plan (``core.lowering``).
 A block's ``out_sharding`` annotation budgets it at per-device bytes under
-a mesh, as in the reference, and the ``"segment"`` lowering pins the
+a mesh, as in the reference, and the ``"policy"`` and ``"segment"`` lowerings pin the
 output onto it on a ``DeviceMesh`` (``parallel.sharding.shard``).
 """
 

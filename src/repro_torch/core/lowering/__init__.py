@@ -11,8 +11,10 @@ Backends (``base.register_lowering``):
 
 * ``"interpreter"`` — §3 interpreted step by step; validation + live-byte
   audit (both carriers);
+* ``"policy"``      — one selective checkpoint region per plan segment
+  keeping the outputs of U_k's blocks (BlockGraph production path);
 * ``"segment"``     — one non-reentrant checkpoint per plan segment
-  (BlockGraph production path);
+  (BlockGraphs, strategy plans and donation);
 * ``"fx"``          — per-segment checkpoint regions with a selective
   policy keyed by fx node (the trace-anything production path; takes the
   place of the reference's ``"jaxpr"``).
@@ -20,9 +22,8 @@ Backends (``base.register_lowering``):
 Storage-strategy plans (``plan.strategy``: offload to pinned host memory,
 int8 quantization; ``lowering.storage``) are realized by ``"interpreter"``
 and ``"fx"`` on traced functions and by ``"segment"`` on BlockGraphs;
-``"fx"`` and ``"segment"`` take ``donate=True`` (``lowering.donation``).  The reference's
-``"policy"`` backend is not ported (ROADMAP.md).  ``plan_function`` is
-the front door.
+``"fx"`` and ``"segment"`` take ``donate=True`` (``lowering.donation``).
+``plan_function`` is the front door.
 """
 
 from .base import (
@@ -36,6 +37,7 @@ from .base import (
 from .carriers import BlockGraphCarrier, TracedCarrier, abstract_signature
 from .front_door import LoweredPlan, PlannedFunction, plan_function
 from .fx import fx_value_and_grad
+from .policy import apply_with_policy, plan_policy
 from .interpreter import (
     planned_value_and_grad,
     traced_planned_value_and_grad,
@@ -63,4 +65,6 @@ __all__ = [
     "vanilla_traced_value_and_grad",
     "vanilla_value_and_grad",
     "apply_segmented",
+    "apply_with_policy",
+    "plan_policy",
 ]

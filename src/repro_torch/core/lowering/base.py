@@ -57,30 +57,38 @@ def check_executable_mesh(mesh: Any) -> None:
 
 
 def check_plan_on_mesh(carrier: Any, plan: ExecutionPlan) -> None:
-    """What a twin cannot run on DTensors yet raises here, naming ROADMAP.md
-    'Multi-device', instead of running unsharded: an axis no twin runs
-    over, a storage strategy (``storage.Stored`` holds plain pinned copies and int8
-    blocks), and a recomputed random draw (the twin replays a saved
-    generator state, which DTensor's own RNG tracker does not follow)."""
+    """What a twin cannot run on DTensors raises here, naming ROADMAP.md
+    'Multi-device', instead of running unsharded: a mesh axis other than
+    ``pod``, ``data`` and ``model`` (:func:`check_executable_mesh`).
+    Storage strategies hold a DTensor's local shard (``storage``), and a
+    recomputed random draw replays the generator states DTensor's draws
+    read (:func:`rng_snapshot`)."""
     from ...parallel.sharding import is_device_mesh
 
     mesh = getattr(carrier, "mesh", None)
-    if not is_device_mesh(mesh):
-        return
-    check_executable_mesh(mesh)
-    if plan.strategy:
-        raise not_ported("storage strategies (offload, quantize) on a DeviceMesh",
-                         "Multi-device")
-    fxg = getattr(carrier, "fx", None)
-    if fxg is not None:
-        from ..fx_graph import op_name
-        from ..prims import ATEN_PRNG
+    if is_device_mesh(mesh):
+        check_executable_mesh(mesh)
 
-        redrawn = [fxg.nodes[v].name for seg in plan.segments for v in seg.recompute
-                   if op_name(fxg.nodes[v].target) in ATEN_PRNG]
-        if redrawn:
-            raise not_ported(f"recomputing random draws {redrawn} on a DeviceMesh",
-                             "Multi-device")
+
+def rng_snapshot(devices: Sequence[int]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The generator states a random draw reads: the CPU's and each CUDA
+    device's.  DTensor's draws read them too: on a CUDA mesh its
+    ``OffsetBasedRNGTracker`` (``torch.distributed.tensor._random``) offsets
+    the CUDA generator by the shard's place and keeps no state of its own
+    (torch 2.11 and 2.13), and a CPU mesh takes no tracker."""
+    return torch.get_rng_state(), [torch.cuda.get_rng_state(d) for d in devices]
+
+
+@contextlib.contextmanager
+def rng_restored(state: Tuple[torch.Tensor, List[torch.Tensor]],
+                 devices: Sequence[int]) -> Iterator[None]:
+    """Run with the generators set to ``state``; the global state is left as
+    it was on entry (``torch.utils.checkpoint``'s ``preserve_rng_state``)."""
+    with torch.random.fork_rng(devices=devices):
+        torch.set_rng_state(state[0])
+        for d, s in zip(devices, state[1]):
+            torch.cuda.set_rng_state(s, d)
+        yield
 
 
 def is_dtensor(t: Any) -> bool:

@@ -6,7 +6,7 @@ paper's ``core.Graph`` for the Planner and (b) be re-executed under a plan
 by the lowering backends:
 
 * :class:`BlockGraphCarrier` — a ``core.blockgraph.BlockGraph`` plus a loss
-  over its outputs.  Node = block; the production lowering is ``"segment"``.
+  over its outputs.  Node = block; the production lowering is ``"policy"``.
 * :class:`TracedCarrier` — **any torch function** of tensors (and pytrees
   of them), traced with ``make_fx`` in fake mode (``core.fx_graph``).  Node
   = aten op; the production lowering is ``"fx"``.
@@ -53,7 +53,7 @@ class BlockGraphCarrier:
     (``plan_function`` stores them on the meta device).  With ``mesh`` (a
     ``DeviceMesh`` or an ``{axis: size}`` dict) blocks carrying an
     ``out_sharding`` annotation are budgeted at per-device bytes, and on a
-    ``DeviceMesh`` the ``"segment"`` lowering pins those outputs onto their
+    ``DeviceMesh`` the ``"policy"`` and ``"segment"`` lowerings pin those outputs onto their
     spec (``blockgraph.block_spec``).
     """
 
@@ -64,7 +64,7 @@ class BlockGraphCarrier:
     cost_model: str = "paper"
     mesh: Any = None
 
-    default_backend = "segment"
+    default_backend = "policy"
 
     def to_graph(self) -> Graph:
         return self.bg.to_graph(self.params, self.inputs, cost_model=self.cost_model,

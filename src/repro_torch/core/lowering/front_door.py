@@ -241,10 +241,9 @@ def plan_function(
         protocol: the exact minimal feasible budget.  An infeasible budget
         raises :class:`InfeasibleBudgetError` naming the minimal one.
     backend:
-        ``"auto"`` (``"fx"`` for traced functions, ``"segment"`` for
+        ``"auto"`` (``"fx"`` for traced functions, ``"policy"`` for
         BlockGraphs), or any registered lowering: ``"interpreter"``,
-        ``"segment"``, ``"fx"``.  The reference's ``"policy"`` backend is
-        not ported (ROADMAP.md).
+        ``"policy"``, ``"segment"``, ``"fx"``.
     method / objective:
         Planner knobs (§4): ``"approx_dp"``/``"exact_dp"`` ×
         ``"time_centric"``/``"memory_centric"``/``"wallclock"``.

@@ -48,8 +48,13 @@ grads are unchanged.  The twin carries ``donate_argnums`` and
 **On a DeviceMesh** the twin runs node by node on DTensors (the aten
 graph is global, so every op takes its global shapes), under the same
 regions; the loss comes back replicated and each gradient in its input's
-placements (``base.grads_like``).  Strategy plans and recomputed random
-draws raise there (``base.check_plan_on_mesh``).
+placements (``base.grads_like``).  A stored node keeps its local shard
+(``storage``: pinned host bytes, or the global codec's int8 payload of
+its elements); a functional collective's output is never copied by the
+forward's policy (its buffer is not ready until waited for), so an
+offloaded node's collectives rerun in the backward.  A recomputed draw
+replays from checkpoint's saved CPU and CUDA generator states, which are
+the states DTensor's draws read (``base.rng_snapshot``).
 
 The twin exposes what the analysis layer reads (``repro_torch.analysis``):
 ``run.node_now()`` is the fx node being evaluated (None between nodes, so
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -89,32 +95,63 @@ from .interpreter import SegmentProgram, run_segment, traced_programs
 # times in the forward and the recompute (torch's SAC_IGNORED_OPS)
 _IGNORED = {torch.ops.aten.detach.default, torch.ops.prim.device.default}
 _RECOMPUTE = object()
+_COLLECTIVES = "_c10d_functional"
 SAVE = "save"
+#: keep the op's outputs only if they turn out to be outputs of the unit
+#: being run (``_Keep.settle``): the ``"policy"`` backend's block outputs
+PENDING = "pending"
 
 
 class _Keep(TorchDispatchMode):
     """The forward of a region: each op's outputs are kept as ``decide()``
-    says (``SAVE``, ``storage.OFFLOAD`` or None to recompute), in order of
-    the op's calls."""
+    says (``SAVE``, ``storage.OFFLOAD``, ``PENDING`` or None to recompute),
+    in order of the op's calls."""
 
     def __init__(self, decide: Callable[[], Optional[str]], kept: Dict[Any, Any],
-                 memo: Dict[int, torch.Tensor]):
+                 memo: Dict[int, Any]):
         super().__init__()
         self.decide, self.kept, self.memo = decide, kept, memo
+        self.pending: List[Any] = []  # (deque, position, spec, weak leaves)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if func not in _IGNORED:
             how = self.decide()
+            entries = self.kept.setdefault(func, collections.deque())
             if how == SAVE:
                 entry = pytree.tree_map_only(torch.Tensor, torch.Tensor.detach, out)
-            elif how == storage.OFFLOAD:
+            elif how == storage.OFFLOAD and getattr(func, "namespace", "") != _COLLECTIVES:
                 entry = pytree.tree_map_only(
                     torch.Tensor, lambda t: storage.offload(t.detach(), self.memo), out)
-            else:
+            else:  # a collective's output is not ready to copy: it is rerun
                 entry = _RECOMPUTE
-            self.kept.setdefault(func, collections.deque()).append(entry)
+                if how == PENDING:  # weakly: an op's other outputs die as they would
+                    leaves, spec = pytree.tree_flatten(out)
+                    self.pending.append((entries, len(entries), spec, [
+                        weakref.ref(t) if isinstance(t, torch.Tensor) else t for t in leaves]))
+            entries.append(entry)
         return out
+
+    def settle(self, outputs: Any) -> List[torch.Tensor]:
+        """Keep the pending ops whose outputs are among ``outputs`` (the same
+        tensor objects, or a DTensor's local tensor), whose other outputs
+        are alive; every other pending op recomputes.  Returns the tensors
+        kept."""
+        want = set()
+        for t in pytree.tree_leaves(outputs):
+            if isinstance(t, torch.Tensor):
+                want.update((id(t), id(getattr(t, "_local_tensor", t))))
+        kept: List[torch.Tensor] = []
+        for entries, i, spec, refs in self.pending:
+            leaves = [r() if isinstance(r, weakref.ref) else r for r in refs]
+            tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+            if any(t is None for t in leaves) or not any(id(t) in want for t in tensors):
+                continue
+            entries[i] = pytree.tree_unflatten([t.detach() if isinstance(t, torch.Tensor)
+                                                else t for t in leaves], spec)
+            kept.extend(tensors)
+        self.pending.clear()
+        return kept
 
 
 class _Replay(TorchDispatchMode):
@@ -136,6 +173,25 @@ class _Replay(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def selective_context(decide: Callable[[], Optional[str]], memo: Dict[int, Any],
+                      between_nodes: Callable[[], Any] = contextlib.nullcontext,
+                      on_keep: Callable[[_Keep], None] = lambda keep: None):
+    """A ``context_fn`` for a non-reentrant checkpoint region: the forward
+    keeps each op's outputs as ``decide()`` says, the recompute returns the
+    kept ones and reruns the rest (the twin of torch's
+    ``create_selective_checkpoint_contexts``, keyed by the caller's own
+    notion of the op's node).  ``on_keep`` receives each region's forward
+    mode."""
+
+    def context_fn():
+        kept: Dict[Any, Any] = {}
+        keep = _Keep(decide, kept, memo)
+        on_keep(keep)
+        return keep, _Replay(kept, between_nodes)
+
+    return context_fn
+
+
 def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan, donate: bool = False):
     """``f(*args) -> (value, grads)`` of the traced function under the plan."""
     check_plan_on_mesh(carrier, plan)
@@ -146,7 +202,7 @@ def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan, donate: bool 
     strategy = plan.strategy or {}
     current: List[Any] = [None]  # the fx node being evaluated
     region_keep: Dict[Any, Any] = {}  # fx node of a recomputing segment -> its keep
-    memo: Dict[int, torch.Tensor] = {}  # host copies of the segment running
+    memo: Dict[int, Any] = {}  # host copies of the segment running
 
     def code_of(node) -> Optional[str]:
         return None if node is out_node else strategy.get(owner.get(node))
@@ -180,10 +236,7 @@ def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan, donate: bool 
         quantized = {n for n in prog.steps if code_of(n) == storage.QUANTIZE
                      and fxg.nodes[owner[n]] is n}
 
-        def context_fn():
-            kept: Dict[Any, Any] = {}
-            return (_Keep(lambda: decide(current[0], keep), kept, memo),
-                    _Replay(kept, between_nodes))
+        context_fn = selective_context(lambda: decide(current[0], keep), memo, between_nodes)
 
         def region(*ext_vals):
             bases: Dict[int, Any] = {}  # roundtrip storage -> its compression
@@ -206,7 +259,7 @@ def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan, donate: bool 
         if not storage.quantizable(t):
             return t
         y, c = roundtrip_with_payload(t)
-        bases[y.untyped_storage().data_ptr()] = c
+        bases[storage.storage_key(y)] = c
         return y
 
     def touches_strategy(prog: SegmentProgram) -> bool:
@@ -225,7 +278,7 @@ def fx_value_and_grad(carrier: TracedCarrier, plan: ExecutionPlan, donate: bool 
             return val
         if code == storage.OFFLOAD:
             return storage.offload(val, memo)
-        base = bases.get(val.untyped_storage().data_ptr())
+        base = bases.get(storage.storage_key(val))
         return val if base is None else storage.quantized(val, base)
 
     last_read: Dict[Any, int] = {}

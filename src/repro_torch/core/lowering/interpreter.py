@@ -22,7 +22,8 @@ Strategy plans (``plan.strategy``), traced path: each cached value is held
 by its storage strategy (``storage.Stored``) — an offloaded one in host
 memory, auditing at 0 device bytes; a quantized one as its int8 payload and
 block scales, auditing at their bytes — so the live-byte trace charges
-what the joint DP priced.  Every read (a forward consumer in a later
+what the joint DP priced (on a DeviceMesh, a DTensor's local shard: its
+pinned host copy, or the global codec's payload of its elements).  Every read (a forward consumer in a later
 segment, a backward recompute) sees the value replayed from storage; a
 view or ``getitem`` of such a node is derived again from its replayed
 base.  The backward recomputes a quantized node inside its own segment
@@ -34,9 +35,8 @@ BlockGraphs).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -56,6 +56,8 @@ from .base import (
     on_mesh,
     register_lowering,
     reject_donate,
+    rng_restored,
+    rng_snapshot,
     value_out,
 )
 from .carriers import BlockGraphCarrier, TracedCarrier
@@ -84,22 +86,6 @@ def _as_leaf(v: Any, grad: bool) -> Any:
     return pytree.tree_map(
         lambda t: t.detach().requires_grad_(grad and t.is_floating_point())
         if isinstance(t, torch.Tensor) else t, v)
-
-
-def _rng_state(devices: Sequence[int]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    return torch.get_rng_state(), [torch.cuda.get_rng_state(d) for d in devices]
-
-
-@contextlib.contextmanager
-def _rng_restored(state: Tuple[torch.Tensor, List[torch.Tensor]],
-                  devices: Sequence[int]) -> Iterator[None]:
-    """Run with the generators set to ``state``; the global state is left as
-    it was on entry (``torch.utils.checkpoint``'s ``preserve_rng_state``)."""
-    with torch.random.fork_rng(devices=devices):
-        torch.set_rng_state(state[0])
-        for d, s in zip(devices, state[1]):
-            torch.cuda.set_rng_state(s, d)
-        yield
 
 
 def _link(progs: List[SegmentProgram], is_final: Callable[[Any], bool]) -> List[SegmentProgram]:
@@ -216,8 +202,9 @@ def interpret(
     A key that draws is evaluated again with the generator state it was
     first evaluated with (saved in the forward), so a recomputed random draw
     (a dropout mask) gives the forward's bits, as a ``jax.random`` key would
-    in the reference; the global generator state is left as the forward
-    left it.
+    in the reference (on a DeviceMesh too: ``base.rng_snapshot`` holds every
+    state DTensor's draws read); the global generator state is left as the
+    forward left it.
 
     ``store(key, value)`` is what the forward caches for a key (a
     ``storage.Stored`` box, or the value), ``load(key, cached, read)`` the
@@ -256,13 +243,13 @@ def interpret(
 
     def first_eval(k, get):
         if draws(k):
-            rng[k] = _rng_state(devices)
+            rng[k] = rng_snapshot(devices)
         return evaluate(k, get)
 
     def replay(k, get):
         if k not in rng:
             return evaluate(k, get)
-        with _rng_restored(rng[k], devices):
+        with rng_restored(rng[k], devices):
             return evaluate(k, get)
 
     # ---------------- forward ----------------

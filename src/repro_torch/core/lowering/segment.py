@@ -5,11 +5,9 @@ Each plan segment V_i runs inside its own non-reentrant
 ``torch.utils.checkpoint``: its saved inputs are exactly the cached
 boundary values ∂(L_{i-1}) ∪ earlier caches it reads (and its blocks'
 parameters), and its interior is recomputed during the backward pass, as
-§3's canonical strategy says.  This is the port's ``"auto"`` for
-BlockGraphs: the reference's ``"policy"`` backend (one checkpoint over the
-whole forward, saving named block outputs) is not ported, because one
-non-reentrant region recomputes its whole forward at the first backward
-access and holds it (ROADMAP.md).  The layer-chain projections
+§3's canonical strategy says.  The BlockGraph default is ``"policy"``
+(``lowering.policy``), which runs the same regions but keeps the cached
+blocks' outputs instead of recomputing them.  The layer-chain projections
 (``segment_groups``, ``even_groups``) live in ``launch.plan`` and
 ``models.transformer``.
 
@@ -53,7 +51,7 @@ from .carriers import BlockGraphCarrier
 from .interpreter import blockgraph_programs
 
 
-def _apply_storage_strategy(val: Any, code: Any, memo: Dict[int, torch.Tensor]) -> Any:
+def _apply_storage_strategy(val: Any, code: Any, memo: Dict[int, Any]) -> Any:
     """Realize one cached value's storage strategy (pytree-wide)."""
     if code == storage.OFFLOAD:
         return pytree.tree_map_only(torch.Tensor, lambda t: storage.offload(t, memo), val)
@@ -64,6 +62,17 @@ def _apply_storage_strategy(val: Any, code: Any, memo: Dict[int, torch.Tensor]) 
     return val
 
 
+def constrain_block_output(out: Any, block: Any, mesh: Any = None) -> Any:
+    """Pin an annotated block output to its sharding: a DTensor output of a
+    block with an ``out_sharding`` is placed on ``mesh`` (by default its
+    own) in the spec ``blockgraph.block_spec`` resolves; anything else
+    passes through."""
+    if block.out_sharding is None or not is_dtensor(out):
+        return out
+    mesh = out.device_mesh if mesh is None or isinstance(mesh, dict) else mesh
+    return place(out, mesh, block_spec(block, tuple(out.shape), axis_sizes_of(mesh)))
+
+
 def apply_segmented(bg, params: Dict[str, Any], inputs: Dict[str, Any],
                     plan: ExecutionPlan, donate: bool = False) -> Any:
     """Execute a BlockGraph under the plan: one checkpoint per segment."""
@@ -72,18 +81,15 @@ def apply_segmented(bg, params: Dict[str, Any], inputs: Dict[str, Any],
     strat = {bg.blocks[v].name: code for v, code in (plan.strategy or {}).items()}
     progs = blockgraph_programs(bg, plan)
     last_read = {k: p.index for p in progs for k in p.ext}
-    memo: Dict[int, torch.Tensor] = {}
+    memo: Dict[int, Any] = {}
     for prog in progs:
 
         def seg_fn(*ext_vals, _prog=prog):
             local = {k: storage.load(v) for k, v in zip(_prog.ext, ext_vals)}
             for name in _prog.steps:
                 b = bg.by_name[name]
-                out = b.apply(local[("param", name)], *[local[i] for i in b.inputs])
-                if b.out_sharding is not None and is_dtensor(out):
-                    mesh = out.device_mesh
-                    out = place(out, mesh, block_spec(b, tuple(out.shape), axis_sizes_of(mesh)))
-                local[name] = out
+                local[name] = constrain_block_output(
+                    b.apply(local[("param", name)], *[local[i] for i in b.inputs]), b)
             return tuple(local[o] for o in _prog.outs)
 
         outs = checkpoint(seg_fn, *[values[k] for k in prog.ext], use_reentrant=False)

@@ -12,12 +12,14 @@ the same requests through one sharded engine on the host mesh
 ``{data: world, model: 1}`` (``Engine(mesh=)``: the slots split over
 ``data``), on ``launch.mesh.init_distributed``'s backend; rank 0 prints.  ``main`` returns the
 completed requests, the wall seconds, the engine steps and each step's
-seconds, and the engine.
+seconds, and the engine.  ``--layers N`` cuts the config's depth to N
+layers at full width, as the training launcher's does.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -45,12 +47,16 @@ def main(argv=None):
                     help="shared on-disk recomputation-plan cache")
     ap.add_argument("--seed", type=int, default=0, help="weight init seed")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers (width kept)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     mesh, rank, owned = None, 0, False
     if "WORLD_SIZE" in os.environ:
         import torch.distributed as dist

@@ -33,8 +33,10 @@ Ported responsibilities:
   :meth:`Trainer.step_tensors` is the step's body (``train_step`` adds
   the NaN guard's host read; the dry run steps fake tensors without it);
 * **gradient compression** — ``compress_grads`` runs the reference's int8
-  error-feedback round-trip (``optim.compression``) on the gradients'
-  local values before the update;
+  error-feedback round-trip (``optim.compression``) on the gradients
+  before the update; on a mesh each gradient and its error feedback keep
+  their parameter's placements and the codec quantizes the global
+  gradient's 256-element blocks, each rank its own elements;
 * **sharded steps** — ``Trainer(mesh=DeviceMesh, in_shardings=)``: the
   model's parameters, the AdamW moments and the error feedback become
   DTensors on the mesh, laid out by ``in_shardings = (param_shardings,
@@ -252,11 +254,6 @@ class Trainer:
             if param_shardings is not None:
                 specs = [sh.normalize_spec(param_shardings.get(n), mesh, p.dim())
                          for n, p in zip(self.names, self.params)]
-            if self.cfg.compress_grads and any(any(e is not None for e in s) for s in specs):
-                from repro_torch.core.lowering.base import not_ported
-
-                raise not_ported("compress_grads on sharded parameters (the codec's blocks "
-                                 "are the global gradient's)", "Multi-device")
         if mesh is not None or self.mesh is not None:
             self._replace_params([_onto(p, mesh, s) for p, s in zip(self.params, specs)])
         self.mesh = mesh
@@ -403,20 +400,20 @@ class Trainer:
                         grads = [a + g.float() for a, g in zip(grads, g_)]
                     del l_, g_
                 loss, grads = loss / n, [g / n for g in grads]
+        if self.err_fb is not None:
+            # leaf by leaf, so the codec holds one leaf's temporaries, not a
+            # second and third copy of every gradient; on a mesh each
+            # gradient in its parameter's placements, quantized in the
+            # global gradient's blocks (``optim.compression``)
+            for i, e in enumerate(self.err_fb):
+                grads[i], new_err = roundtrip_leaf_with_feedback(grads[i], e)
+                with torch.no_grad():
+                    _local(e).copy_(_local(new_err))
+                del new_err
         # the global norm: each leaf's local squares reduced over the mesh
         # dims that shard it (a replicated leaf's local value is whole)
         gnorm = adamw.global_norm(grads)
-        grads = [_local(g) for g in grads]
-        if self.err_fb is not None:
-            # leaf by leaf, so the codec holds one leaf's temporaries, not a
-            # second and third copy of every gradient
-            for i, e in enumerate(self.err_fb):
-                grads[i], new_err = roundtrip_leaf_with_feedback(grads[i], _local(e))
-                with torch.no_grad():
-                    _local(e).copy_(new_err)
-                del new_err
-            gnorm = adamw.global_norm(grads)
-        return loss, grads, gnorm
+        return loss, [_local(g) for g in grads], gnorm
 
     def _update(self, grads, gnorm) -> float:
         """AdamW on the local tensors, in place; returns the step's lr."""

@@ -6,9 +6,9 @@ the reference's ``examples/*.py`` on the CPU.
   example's own arrays to rtol 1e-5 (f32 matmuls in another order).
 * ``plan_explorer``: ``--traced demo``, ``--traced bg-demo`` and ``--arch
   stablelm-3b`` print the reference's lines, the solve timings aside and
-  the backend named by its twin (``"fx"`` for ``"jaxpr"``, ``"segment"``
-  for ``"policy"``); ``--network`` raises, naming ROADMAP.md 'Benchmarks +
-  examples'.
+  the traced backend named by its twin (``"fx"`` for ``"jaxpr"``; the
+  BlockGraph's ``"policy"`` is the reference's own name); ``--network``
+  raises, naming ROADMAP.md 'Benchmarks + examples'.
 * ``train_lm``: the reference's plan line, and after 2 steps (batch 2 ×
   32) on the reference example's initial weights its final loss within
   the bf16 tolerance of the port's tests (2e-2 × max(1, |loss|)).
@@ -81,9 +81,7 @@ def test_plan_explorer_prints_the_reference_frontier(argv, monkeypatch):
     def lines(text):
         return [ln for ln in text.splitlines() if not ln.startswith("solve_grid:")]
 
-    twin = {"'jaxpr'": "'fx'", "'policy'": "'segment'"}
-    assert lines(got) == [re.sub("|".join(twin), lambda m: twin[m.group()], ln)
-                          for ln in lines(want)]
+    assert lines(got) == [ln.replace("'jaxpr'", "'fx'") for ln in lines(want)]
 
 
 def test_plan_explorer_network_raises():

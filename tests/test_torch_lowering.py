@@ -125,7 +125,7 @@ def _blockgraph_case(seed, n_blocks):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("backend", ["interpreter", "segment"])
+@pytest.mark.parametrize("backend", ["interpreter", "segment", "policy"])
 @pytest.mark.parametrize("seed,n_blocks", SEEDS)
 def test_blockgraph_backends_bitwise(seed, n_blocks, backend):
     bg, params, inputs, loss_fn = _blockgraph_case(seed, n_blocks)
@@ -239,15 +239,18 @@ def test_registry_and_auto_dispatch():
     assert carrier.default_backend == "fx"
     bg, params, inputs, loss_fn = _blockgraph_case(3, 4)
     bc = BlockGraphCarrier(bg, loss_fn, params, inputs)
-    assert available_backends(bc) == ["interpreter", "segment"]
-    assert bc.default_backend == "segment"
+    assert available_backends(bc) == ["interpreter", "policy", "segment"]
+    assert bc.default_backend == "policy"
     pf = plan_function(bg, loss_fn=loss_fn, planner=Planner(cache=PlanCache()))
-    assert pf.lowered_for(params, inputs).backend == "segment"
+    assert pf.lowered_for(params, inputs).backend == "policy"
+    assert get_lowering("policy").supports(bc) and not get_lowering("policy").supports(carrier)
 
     with pytest.raises(ValueError, match="unknown lowering backend"):
-        get_lowering("policy")  # not ported (ROADMAP.md)
+        get_lowering("jaxpr")  # the port's twin of the reference's "jaxpr" is "fx"
     with pytest.raises(ValueError, match="does not support"):
         plan_function(fn, backend="segment").lowered_for(*args)
+    with pytest.raises(ValueError, match="does not support"):
+        plan_function(fn, backend="policy").lowered_for(*args)
 
 
 @pytest.mark.parametrize("backend", ["fx", "segment"])

@@ -23,8 +23,10 @@ matrices):
   its planned twin is bitwise it, ``remesh(shardings=)`` is bitwise a
   Trainer built there, and a checkpoint restart is bitwise (full arrays on
   disk);
-* ``compress_grads`` on sharded parameters raises, naming ROADMAP.md
-  'Multi-device';
+* ``compress_grads`` on the FSDP layout runs 3 steps within the codec's
+  noise (rtol 1e-2) of the plain FSDP Trainer, its error feedback in the
+  parameters' placements (``tests/test_torch_mesh_codec.py`` holds the
+  codec bitwise and the losses to the meshless compressed Trainer);
 * GQA whose KV heads the model axis does not divide (q's heads split, k's
   and v's whole): the flash kernels get each rank's q heads over as many
   local copies of its own KV head (MHA), the forward sends nothing and the

@@ -13,13 +13,16 @@ Execution, on four gloo ranks on the CPU (one spawn,
 ``tests/torch_dist_workers.py``): the twins of the reference's four
 concrete-mesh tests, which need a concrete 8-device mesh.  The planned
 sharded twin is bitwise sharded vanilla autograd on ``"fx"``,
-``"interpreter"`` and (a BlockGraph) ``"segment"``; gradients keep the
+``"interpreter"`` and (a BlockGraph) ``"segment"`` and ``"policy"``; gradients keep the
 inputs' placements; ``check_lowering`` holds on the concrete twin; the
 global loss and gradients are within f32 rtol 1e-6 of the reference's
 unsharded function on the global inputs (``assert_close``: an absolute
 floor of rtol × the tensor's largest magnitude; the flash-attention
-function within the port's attention tolerance, 1e-5); a model axis, a strategy plan
-and a recomputed random draw raise naming ROADMAP.md 'Multi-device'.
+function within the port's attention tolerance, 1e-5); flash attention
+in layouts no rule serves and a mesh axis no twin runs over (``stage``)
+raise naming ROADMAP.md 'Multi-device', while a strategy plan and a
+recomputed random draw run bitwise sharded vanilla (the keys
+``strategy_raises`` and ``redraw_raises`` are kept from when they raised).
 """
 
 import numpy as np
@@ -294,6 +297,7 @@ RANK_CHECKS = [
     "gx_keeps_input_placements", "gx_bitwise_vanilla",
     "check_lowering_ok", "check_lowering_catches_drift", "segment_bitwise_vanilla",
     "attention_bitwise_vanilla", "model_axis_raises", "strategy_raises", "redraw_raises",
+    "stage_axis_raises", "policy_bitwise_vanilla",
 ]
 
 

@@ -18,6 +18,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from typing import Callable, Dict, List
 
@@ -106,8 +107,12 @@ def _bits(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
+def _full_t(t):
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
 def _full(t) -> np.ndarray:
-    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy()
+    return _full_t(t).numpy()
 
 
 def case_sharding(inp, rank, world):
@@ -159,8 +164,9 @@ def case_sharding(inp, rank, world):
 
 def case_planning(inp, rank, world):
     """Sharded planned twins against sharded vanilla autograd, bitwise, on
-    the three backends; grads in the inputs' placements; conformance on the
-    concrete mesh; what raises on a DeviceMesh."""
+    the four backends; grads in the inputs' placements; conformance on the
+    concrete mesh; a strategy plan and a recomputed draw on it; what raises
+    on a DeviceMesh."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, Shard
@@ -289,19 +295,38 @@ def case_planning(inp, rank, world):
         lambda: flash_attention(sh.place(qkv, m22, (None, None, "model", None)),
                                 sh.place(qkv, m22, ("data",)), sh.place(qkv, m22, ("data",))),
         "differing layouts"))
+    # the keys of the two checks below are kept from when both raised: a
+    # strategy plan (every cached node offloaded) and a plan that recomputes a
+    # random draw now run, bitwise sharded vanilla (the draw's in the plan's
+    # node order); a mesh axis no twin runs over still raises
     every = make_plan(cg, [frozenset(range(cg.n))])
-    out["strategy_raises"] = np.array(raises(
-        lambda: check_plan_on_mesh(carrier, dataclasses.replace(every, strategy={0: "offload"})),
-        "storage strategies"))
+    offloaded = dataclasses.replace(tight, strategy={v: "offload" for v in tight.cached})
+    out["strategy_raises"] = np.array(bool(offloaded.strategy) and _bits(
+        fx_value_and_grad(carrier, offloaded)(params, x),
+        vanilla_traced_value_and_grad(carrier)(params, x)))
 
     def dropout_loss(params, x):
         return torch.sum(torch.nn.functional.dropout(x @ params[0], 0.5, training=True) ** 2)
 
     drop = TracedCarrier.trace(dropout_loss, (params, x), mesh=mesh, in_shardings=specs)
     dg = drop.to_graph()
-    out["redraw_raises"] = np.array(raises(
-        lambda: check_plan_on_mesh(drop, make_plan(dg, [frozenset(range(dg.n))])),
-        "random draws"))
+    redraw = make_plan(dg, [frozenset(range(dg.n))])
+    torch.manual_seed(5)
+    got = fx_value_and_grad(drop, redraw)(params, x)
+    torch.manual_seed(5)
+    want = vanilla_traced_value_and_grad(drop, redraw)(params, x)
+    out["redraw_raises"] = np.array(_bits(got, want))
+    staged = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "stage"))
+    out["stage_axis_raises"] = np.array(raises(
+        lambda: check_plan_on_mesh(types.SimpleNamespace(mesh=staged), every),
+        "mesh axis 'stage'"))
+
+    # the "policy" backend (the BlockGraph default) on the pinned blocks
+    pf = repro_torch.plan_function(bg, None, loss_fn=sq, mesh=mesh,
+                                   planner=Planner(cache=PlanCache()))
+    out["policy_bitwise_vanilla"] = np.array(
+        pf.lowered_for(bparams, binputs).backend == "policy"
+        and _bits(pf(bparams, binputs), vanilla_value_and_grad(bg, sq)(bparams, binputs)))
     return out
 
 
@@ -473,7 +498,8 @@ def case_model_axis(inp, rank, world):
     loss and grads (eager, and the ``"fx"`` and ``"interpreter"`` planned
     twins against their traced vanilla), priced against local bytes, the
     flash ops' layouts; then the tensor-parallel Trainer's collectives, the
-    FSDP Trainer, ``remesh``, a checkpoint restart and what raises."""
+    FSDP Trainer, ``remesh``, a checkpoint restart and compressed
+    gradients."""
     import shutil
 
     import torch
@@ -671,16 +697,16 @@ def case_model_axis(inp, rank, world):
         and all(torch.equal(a.to_local(), b.to_local())
                 for a, b in zip(again.params, first.params)))
 
-    # what still raises on the model axis, naming ROADMAP.md 'Multi-device'
-    def raises(fn_: Callable[[], object], match: str) -> bool:
-        try:
-            fn_()
-        except NotImplementedError as e:
-            return match in str(e) and "Multi-device" in str(e)
-        return False
-
-    out["compress_raises"] = np.array(raises(lambda: trainer(compress_grads=True),
-                                             "compress_grads on sharded parameters"))
+    # compressed gradients on the FSDP layout (the key is kept from when this
+    # raised): 3 steps within the codec's noise of the plain FSDP run, the
+    # error feedback in the parameters' placements
+    ctr = trainer(compress_grads=True)
+    cres = run(ctr)
+    out["compress_raises"] = np.array(
+        np.allclose(cres["losses"], res["losses"], rtol=1e-2)
+        and all(tuple(e.placements) == tuple(p.placements)
+                for e, p in zip(ctr.err_fb, ctr.params)))
+    del ctr
     # GQA whose one KV head the model axis does not divide: q's heads
     # split, k's and v's whole; the flash ops' forward and backward send
     # only the dk and dv sums over model, (B_l, S, KV, D) f32 each
@@ -746,6 +772,251 @@ def case_model_axis(inp, rank, world):
                 out[f"{arch}:comm:{axis}:{op}"] = np.array(rec["payload_bytes"])
                 out[f"{arch}:calls:{axis}:{op}"] = np.array(rec["calls"])
     return out
+
+#: the DTensor codec's cases: (name, global shape, placements over {data:
+#: 2, model: 2}); the aligned ones (each rank's runs of the global
+#: flattening hold whole 256-element blocks) send nothing
+CODEC_CASES = (
+    ("shard0", (8, 128), ("S0", "R"), True),
+    ("shard1", (6, 512), ("R", "S1"), True),
+    ("shard0_straddle", (10, 77), ("S0", "R"), False),
+    ("shard1_straddle", (6, 100), ("R", "S1"), False),
+    ("both", (12, 200), ("S0", "S1"), False),
+    ("same_dim", (16, 40), ("S0", "S0"), False),
+    ("replicated", (5, 300), ("R", "R"), True),
+)
+
+
+def case_mesh_codec(inp, rank, world):
+    """On ``{data: 2, model: 2}``: the global int8 codec on DTensors (each
+    rank's payload and values against ``compress`` of the full tensor, and
+    the collectives it sends), the error-feedback round-trip; Trainers with
+    ``compress_grads`` on FSDP and tensor-parallel layouts (their step-1
+    codec against the global codec of the gathered gradient); strategy
+    plans and a dropout plan that recomputes its draws on the reduced LM
+    and a dropout MLP; ``hierarchical_psum`` on ``{pod: 2, data: 2}``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    import repro_torch
+    from repro_torch.analysis.census import CountCollectives
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import PlanCache, Planner
+    from repro_torch.core.fx_graph import op_name
+    from repro_torch.core.lowering import fx as fx_lowering
+    from repro_torch.core.lowering import vanilla_traced_value_and_grad
+    from repro_torch.core.prims import ATEN_PRNG
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import specs
+    from repro_torch.models import build_model
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.loop import functional_loss
+
+    mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    data_rank = rank // (world // 2)
+    out: Dict[str, np.ndarray] = {}
+    kinds = {"R": Replicate(), "S0": Shard(0), "S1": Shard(1)}
+
+    def global_restricted(c: "comp.Compressed", layout) -> tuple:
+        """The global codec's payload and values at this rank's elements."""
+        box = tuple(slice(o, o + n) for o, n in zip(layout.offset, layout.local_shape))
+        n = int(np.prod(layout.shape))
+        q = c.q.reshape(-1)[:n].reshape(layout.shape)[box]
+        return q, comp.decompress(c)[box]
+
+    # 1. the codec on DTensors, bitwise the global codec restricted
+    for name, shape, placements, _ in CODEC_CASES:
+        x = torch.tensor(inp[f"codec:{name}"])
+        dx = DTensor.from_local(x, mesh, [Replicate(), Replicate()], run_check=False)
+        dx = dx.redistribute(mesh, [kinds[p] for p in placements])
+        layout = comp.shard_layout(dx)
+        with CountCollectives() as counted:
+            c = comp.compress_shard(dx.to_local(), layout)
+        q, vals = global_restricted(comp.compress(x), layout)
+        out[f"codec:{name}:bitwise"] = np.array(
+            torch.equal(comp.local_payload(c), q)
+            and torch.equal(comp.decompress_shard(c), vals))
+        out[f"codec:{name}:aligned"] = np.array(layout.aligned())
+        out[f"codec:{name}:bytes"] = np.array(counted.total())
+        out[f"codec:{name}:calls"] = np.array(sum(r["calls"] for r in counted.stats.values()))
+        out[f"codec:{name}:q"] = comp.local_payload(c).numpy()
+        out[f"codec:{name}:offset"] = np.array(layout.offset)
+        # the error-feedback round-trip and the straight-through value
+        e = torch.tensor(inp[f"codec:{name}:e"])
+        de = DTensor.from_local(e, mesh, [Replicate(), Replicate()], run_check=False)
+        de = de.redistribute(mesh, dx.placements)
+        g2, e2 = comp.roundtrip_leaf_with_feedback(dx, de)
+        wg, we = comp.roundtrip_leaf_with_feedback(x, e)
+        rt = comp.straight_through_roundtrip(dx)
+        out[f"codec:{name}:feedback_bitwise"] = np.array(
+            tuple(g2.placements) == tuple(dx.placements)
+            and torch.equal(g2.full_tensor(), wg) and torch.equal(e2.full_tensor(), we)
+            and torch.equal(rt.full_tensor(), comp.straight_through_roundtrip(x)))
+    # a Partial tensor: its global value is the sum, reduced before the codec
+    x = torch.tensor(inp["codec:both"])
+    part = DTensor.from_local(x / 2, mesh, [Partial(), Replicate()], run_check=False)
+    out["codec:partial_bitwise"] = np.array(torch.equal(
+        comp.straight_through_roundtrip(part).full_tensor(),
+        comp.straight_through_roundtrip(part.full_tensor())))
+
+    # 2. compress_grads on sharded parameters: FSDP over data and tensor
+    # parallel over model; the step-1 codec against the global codec of the
+    # gathered gradient and error feedback, leaf by leaf
+    cfg = dataclasses.replace(reduced(get_config("stablelm-3b"), d_model=256), dtype="float32")
+    state = {k[len("p256:"):]: torch.tensor(v) for k, v in inp.items() if k.startswith("p256:")}
+    steps, seq, batch = int(inp["steps"]), int(inp["seq"]), int(inp["batch"])
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                  num_hosts=2, host_id=data_rank))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+
+    def model():
+        m = build_model(cfg, device="cpu")
+        m.load_state_dict(state, strict=True)
+        return m
+
+    def loss_fn(m, b):
+        return m.loss(b)
+
+    named = dict(model().named_parameters())
+    layouts = {"fsdp": sh.named_sharding_tree(named, mesh, fsdp=True),
+               "tp": specs.param_shardings(cfg, mesh, named)}
+    codec = train_loop.roundtrip_leaf_with_feedback
+    for tag, layout_ in layouts.items():
+        checks: List[bool] = []
+
+        def watched(g, e, _checks=checks):
+            got = codec(g, e)
+            if tr.step == 0:
+                want = codec(g.full_tensor(), e.full_tensor())
+                _checks.append(all(
+                    torch.equal(a.to_local(), sh.place(b, mesh, sh.normalize_spec(a)).to_local())
+                    for a, b in zip(got, want)))
+            return got
+
+        tr = Trainer(loss_fn, model(), TrainConfig(log_every=0, optimizer=opt,
+                                                   total_steps=steps, compress_grads=True),
+                     device="cpu", mesh=mesh, in_shardings=(layout_, None))
+        train_loop.roundtrip_leaf_with_feedback = watched
+        try:
+            res = tr.run(data.batch(i) for i in range(steps))
+        finally:
+            train_loop.roundtrip_leaf_with_feedback = codec
+        out[f"compress_{tag}:losses"] = np.array(res["losses"])
+        out[f"compress_{tag}:sharded_leaves"] = np.array(sum(
+            1 for p in tr.params if not all(q.is_replicate() for q in p.placements)))
+        out[f"compress_{tag}:step1_codec_bitwise"] = np.array(
+            len(checks) == len(tr.params) and all(checks))
+        out[f"compress_{tag}:feedback_placements"] = np.array(all(
+            tuple(e.placements) == tuple(p.placements) for e, p in zip(tr.err_fb, tr.params)))
+
+    # 3. strategy plans on the reduced LM's tensor-parallel loss: offload
+    # bitwise the mesh's vanilla (the "fx" and "interpreter" twins), a
+    # quantizing plan's int8 payloads bitwise the global codec's
+    lcfg = dataclasses.replace(reduced(get_config("stablelm-3b")), dtype="float32")
+    lm = build_model(lcfg, device="cpu")
+    lm.load_state_dict({k[len("p64:"):]: torch.tensor(v) for k, v in inp.items()
+                        if k.startswith("p64:")}, strict=True)
+    fn, params = functional_loss(loss_fn, lm)
+    tp = specs.param_shardings(lcfg, mesh, {k[len("model."):]: v for k, v in params.items()})
+    dparams = {k: sh.place(v.detach(), mesh, sh.normalize_spec(tp[k[len("model."):]], mesh,
+                                                                v.dim())).requires_grad_()
+               for k, v in params.items()}
+    ldata = SyntheticLM(DataConfig(vocab_size=lcfg.vocab_size, seq_len=seq, global_batch=batch,
+                                   num_hosts=2, host_id=data_rank))
+    db = {k: DTensor.from_local(torch.as_tensor(v), mesh, [Shard(0), Replicate()],
+                                run_check=False) for k, v in ldata.batch(0).items()}
+    for backend in ("fx", "interpreter"):
+        pf = repro_torch.plan_function(fn, None, mesh=mesh, in_shardings=(None, None),
+                                       backend=backend, strategies=("offload",),
+                                       planner=Planner(cache=PlanCache()))
+        low = pf.lowered_for(dparams, db)
+        got = pf(dparams, db)
+        ref = vanilla_traced_value_and_grad(low.carrier)(dparams, db)
+        out[f"offload_{backend}:nodes"] = np.array(sum(
+            1 for c in (low.plan.strategy or {}).values() if c == "offload"))
+        out[f"offload_{backend}:bitwise_vanilla"] = np.array(_bits(got, ref))
+    captured = []
+    roundtrip = fx_lowering.roundtrip_with_payload
+
+    def capture(t):
+        y, c = roundtrip(t)
+        captured.append((comp.reduce_partial(t).full_tensor().detach(), c))
+        return y, c
+
+    fx_lowering.roundtrip_with_payload = capture
+    try:
+        pf = repro_torch.plan_function(fn, None, mesh=mesh, in_shardings=(None, None),
+                                       strategies=("quantize",),
+                                       planner=Planner(cache=PlanCache()))
+        low = pf.lowered_for(dparams, db)
+        got = pf(dparams, db)
+    finally:
+        fx_lowering.roundtrip_with_payload = roundtrip
+    ref = vanilla_traced_value_and_grad(low.carrier)(dparams, db)
+    out["quantize:nodes"] = np.array(sum(
+        1 for c in (low.plan.strategy or {}).values() if c == "quantize"))
+    out["quantize:captured"] = np.array(len(captured))
+    ok = []
+    for i, (full, c) in enumerate(captured):
+        q, _ = global_restricted(comp.compress(full), c.layout)
+        ok.append(torch.equal(comp.local_payload(c), q))
+        if i < 3:  # a few for the parent, against the reference's codec
+            out[f"quantize:{i}:full"] = full.numpy()
+            out[f"quantize:{i}:q"] = comp.local_payload(c).numpy()
+            out[f"quantize:{i}:offset"] = np.array(c.layout.offset)
+    out["quantize:payloads_bitwise"] = np.array(bool(ok) and all(ok))
+    out["quantize:loss"], out["quantize:vanilla_loss"] = _full(got[0]), _full(ref[0])
+    out["quantize:grad_rel_l2"] = np.array(max(
+        float((_full_t(got[1][k]) - _full_t(ref[1][k])).norm()
+              / max(float(_full_t(ref[1][k]).norm()), 1e-30)) for k in ref[1]))
+
+    # 4. a dropout MLP whose default plan recomputes its bernoulli draws,
+    # bitwise the mesh's plain autograd through the traced nodes (each drawn
+    # once), on both traced backends; eager F.dropout on a sharded DTensor
+    # dispatches native_dropout, which draws in another order than the
+    # traced bernoulli
+    def dropout_mlp(ws, x):
+        h = x
+        for w in ws:
+            h = torch.nn.functional.dropout(torch.tanh(h @ w), 0.5, training=True)
+        return torch.sum(h * h)
+
+    ws = [torch.tensor(inp[f"drop:w{i}"]) for i in range(int(inp["drop:n"]))]
+    dx = torch.tensor(inp["drop:x"])
+    for backend in ("fx", "interpreter"):
+        pf = repro_torch.plan_function(dropout_mlp, None, mesh=mesh,
+                                       in_shardings=(None, ("data", None)), backend=backend,
+                                       planner=Planner(cache=PlanCache()))
+        low = pf.lowered_for(ws, dx)
+        fxg = low.carrier.fx
+        redrawn = [v for seg in low.plan.segments for v in seg.recompute
+                   if op_name(fxg.nodes[v].target) in ATEN_PRNG]
+        torch.manual_seed(11)
+        got = pf(ws, dx)
+        torch.manual_seed(11)
+        ref = vanilla_traced_value_and_grad(low.carrier, low.plan)(ws, dx)
+        out[f"dropout_{backend}:redrawn"] = np.array(len(redrawn))
+        out[f"dropout_{backend}:bitwise_vanilla"] = np.array(_bits(got, ref))
+
+    # 5. hierarchical_psum on {pod: 2, data: 2} over the same ranks, and
+    # with no pod axis (a plain all-reduce over data)
+    pod_mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("pod", "data"))
+    hx = torch.tensor(inp[f"psum:x{rank}"])
+    with CountCollectives() as counted:
+        hy = comp.hierarchical_psum(hx, pod_mesh)
+    out["psum:y"] = hy.numpy()
+    for axis, ops in counted.by_axis(pod_mesh).items():
+        for op, rec in ops.items():
+            out[f"psum:comm:{axis}:{op}:calls"] = np.array(rec["calls"])
+            out[f"psum:comm:{axis}:{op}:payload"] = np.array(rec["payload_bytes"])
+    out["psum:nopod_y"] = comp.hierarchical_psum(hx, mesh).numpy()
+    return out
+
 
 
 def case_expert_parallel(inp, rank, world):
@@ -897,7 +1168,7 @@ def case_sharded_decode(inp, rank, world):
 
 
 CASES = {"sharding": case_sharding, "planning": case_planning, "train": case_train,
-         "model_axis": case_model_axis,
+         "model_axis": case_model_axis, "mesh_codec": case_mesh_codec,
          "expert_parallel": case_expert_parallel, "sharded_decode": case_sharded_decode}
 
 
