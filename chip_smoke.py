@@ -129,6 +129,16 @@ non-zero and print no result):
              ``check_plan`` with the reference's codes; the launcher's
              verification count; and ``python -m repro_torch.analysis
              --traced quickstart --hlo --device cuda``, which must exit 0;
+10b. networks — the paper's seven benchmark graphs
+             (``configs.paper_networks``): ``plan_lint --hlo --network
+             NAME --device cuda`` on each (exit 0, heavy ops within the
+             plan's eq. (1) count), then each network's executable twin at
+             ``NETWORKS_BATCH`` x ``NETWORKS_WIDTH`` f32 (16 MiB a node)
+             under its abstract plan at the exact minimal budget (the
+             ``"policy"`` backend) and under plain autograd in the plan's
+             order: loss and grads bitwise, requested and allocated peaks
+             above the arguments and outputs beside the analytic peaks, the
+             planned requested peak within the drift band of the analytic;
 11. serve   — ``repro_torch.launch.serve`` at full stablelm-3b width and
              depth: 16 requests of 64 new tokens through 8 slots of a
              2048-token KV cache; engine steps, median and p90 step time,
@@ -307,6 +317,10 @@ TEACHER_BF16_MAX, TEACHER_BF16_MEAN, TEACHER_BF16_AGREE = 0.5, 0.05, 0.8
 # documented bound for quantized plans (tests/test_strategies.py), relative
 # on the loss and relative l2 on the grads
 QUANT_BOUND = 5e-2
+# phase networks: the executable twin of the paper's seven graphs at a size
+# where a node's bytes are real (f32 (batch, width), 16 MiB a node), beside
+# the plan_lint CLI's own run at the reference's twin size (batch 4, width 16)
+NETWORKS_BATCH, NETWORKS_WIDTH = 4096, 1024
 # the checkpoint phase's depth (full width): ~0.42e9 parameters, ~5 GB a
 # checkpoint with the AdamW moments
 CKPT_UNITS = 2
@@ -3060,6 +3074,100 @@ def phase_analysis(results, state):
     check(proc.returncode == 0, "python -m repro_torch.analysis --traced quickstart --hlo failed")
 
 
+def phase_networks(results):
+    """The paper's seven benchmark networks (``configs.paper_networks``) on
+    the card: ``plan_lint --hlo --network NAME --device cuda`` for each
+    (exit 0, heavy ops measured within the plan's eq. (1) count), then each
+    network's executable twin at ``NETWORKS_BATCH`` x ``NETWORKS_WIDTH`` f32
+    under its abstract plan at the exact minimal budget (the ``"policy"``
+    backend, one block a node) and under plain autograd in the plan's node
+    order: loss and grads bitwise, and the planned twin's requested peak
+    above its arguments and outputs within the drift gate's band of the
+    plan's analytic peak in the twin's bytes."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+
+    cli = importlib.import_module("repro_torch.analysis.cli")
+    census = importlib.import_module("repro_torch.analysis.census")
+    core = importlib.import_module("repro_torch.core")
+    pn = importlib.import_module("repro_torch.configs.paper_networks")
+
+    planner = core.get_default_planner()
+    node_bytes = 4 * NETWORKS_BATCH * NETWORKS_WIDTH
+    for name in sorted(pn.NETWORKS):
+        # 1. the CLI's own run, at the reference's twin size
+        with tempfile.TemporaryDirectory() as tmp:
+            drift_path = os.path.join(tmp, "drift.json")
+            t0 = time.perf_counter()
+            rc = cli.main(["--hlo", "--network", name, "--device", "cuda",
+                           "--drift-json", drift_path])
+            cli_s = time.perf_counter() - t0
+            (rec,) = json.load(open(drift_path))["records"] if rc == 0 else [{}]
+        print(f"[networks] {name}: plan_lint --hlo exit {rc} in {cli_s:.2f} s; drift status "
+              f"{rec.get('drift_status')}, heavy ops measured {rec.get('heavy_measured')} of "
+              f"{rec.get('heavy_expected')} expected; record {json.dumps(rec)}")
+        check(rc == 0, f"plan_lint --hlo --network {name} failed")
+        check(rec["heavy_measured"] <= rec["heavy_expected"],
+              f"{name}: the twin ran more heavy ops than the plan's eq. (1) count")
+
+        # 2. the twin where a node's bytes are real
+        g = pn.NETWORKS[name]()
+        t0 = time.perf_counter()
+        plan = planner.plan(g, None).plan
+        plan_s = time.perf_counter() - t0
+        _, (params, x), byte_graph = pn.executable_twin(g, NETWORKS_BATCH, NETWORKS_WIDTH,
+                                                         device="cuda")
+        analytic = core.peak_memory_live(byte_graph, [s.lower_set for s in plan.segments])
+        vanilla = core.vanilla_peak(byte_graph, liveness=True)
+        band = analytic * (1 + census.DRIFT_REL) + census.DRIFT_ABS_SLACK
+        twins = {"planned": pn.twin_value_and_grad(g, plan),
+                 "plain": pn.twin_value_and_grad(g, order=pn.plan_order(plan))}
+        runs = {}
+        for tag, twin in twins.items():
+            twin(params, x)  # warm-up: cuBLAS's workspace stays out of the peak
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads = twin(params, x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            stats = torch.cuda.memory_stats()
+            # above the arguments and, as the census's temp bytes, the outputs
+            out = loss.nbytes + sum(t.nbytes for t in grads.values())
+            asked = stats["requested_bytes.all.peak"] - requested - out
+            held = torch.cuda.max_memory_allocated() - before - out
+            runs[tag] = (loss, grads, asked, held, ms)
+        same = torch.equal(runs["planned"][0], runs["plain"][0]) and all(
+            torch.equal(runs["planned"][1][k], runs["plain"][1][k]) for k in grads)
+        (_, _, p_req, p_alloc, p_ms), (_, _, v_req, v_alloc, v_ms) = (runs["planned"],
+                                                                      runs["plain"])
+        print(f"[networks] {name}: {g.n} nodes, planned in {plan_s:.2f} s at the exact minimal "
+              f"budget ({len(plan.segments)} segments, {len(plan.cached)} cached); twin at "
+              f"{NETWORKS_BATCH} x {NETWORKS_WIDTH} f32 ({node_bytes} B a node): peak above "
+              f"arguments and outputs, requested / allocated, planned {p_req} / {p_alloc} B, "
+              f"plain {v_req} / {v_alloc} B, ratio {p_req / v_req:.4f} / "
+              f"{p_alloc / v_alloc:.4f}; analytic planned {analytic:.6e} B, vanilla "
+              f"{vanilla:.6e} B, ratio {analytic / vanilla:.4f}; requested / analytic "
+              f"{p_req / analytic:.4f} (band {band:.6e} B); loss and grads bitwise plain "
+              f"autograd in the plan's order: {same}; {p_ms:.1f} ms planned, {v_ms:.1f} ms "
+              f"plain")
+        check(same, f"{name}: the planned twin's loss or grads differ from plain autograd")
+        check(p_req <= band, f"{name}: the planned twin's requested peak {p_req} B is outside "
+              f"the drift band {band:.6e} B of the analytic peak")
+        results.setdefault("networks", {})[name] = {
+            "requested": [p_req, v_req], "allocated": [p_alloc, v_alloc],
+            "analytic": [analytic, vanilla]}
+        del params, x, twins, runs, grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def rel_l2(got, want) -> float:
     num = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(got, want))
     den = sum(float((b.float() ** 2).sum()) for b in want)
@@ -4148,6 +4256,7 @@ def main() -> int:
         ("axis_serve", lambda: phase_axis_serve(results)),
         ("production", lambda: phase_production(results)),
         ("analysis", lambda: phase_analysis(results, state)),
+        ("networks", lambda: phase_networks(results)),
         ("strategies", lambda: phase_strategies(results)),
         ("costs", lambda: phase_costs(results)),
         ("ckpt", lambda: phase_ckpt(results)),

@@ -429,9 +429,11 @@ def analyze_twin(
 ) -> HloAnalysis:
     """Run the census and the drift gate on an explicitly lowered twin.
 
-    ``fn_grad`` is the planned ``"fx"`` twin (its ``node_now`` attributes
-    recompute to fx nodes; ``owner`` maps those to graph nodes), ``args``
-    concrete arguments.  ``recompute`` is the plan's ``V \\ U_k``;
+    ``fn_grad`` is a planned twin with a ``node_now`` hook that attributes
+    recompute: an ``"fx"`` twin's fx nodes, or the node whose value a
+    paper network's ``"policy"`` twin is making
+    (``configs.paper_networks.twin_value_and_grad``); ``owner`` maps those
+    to graph nodes.  ``args`` are concrete arguments.  ``recompute`` is the plan's ``V \\ U_k``;
     ``plan_heavy_recompute`` its heavy nodes and
     ``unpacked_heavy_recompute`` those the twin's backward can rerun (the
     band's low end); ``analytic_peak`` the plan's liveness-tight peak in
@@ -485,7 +487,10 @@ def analyze_twin(
         record.update(heavy_vanilla=census.vanilla, heavy_planned=census.planned,
                       heavy_recompute_planned=plan_heavy_recompute,
                       heavy_recompute_unpacked=unpacked_heavy_recompute,
-                      nodes_rerun=len(rerun))
+                      nodes_rerun=len(rerun),
+                      # the reference's names: heavy ops run, and the most
+                      # the plan's eq. (1) allows (None without a baseline)
+                      heavy_measured=census.planned, heavy_expected=census.expected)
 
         beyond = sorted(rerun - recompute)
         if beyond:

@@ -9,6 +9,7 @@ from typing import Dict, List
 from . import (
     granite_moe_3b_a800m,
     mistral_large_123b,
+    paper_networks,
     phi4_mini_3_8b,
     phi_3_vision_4_2b,
     qwen2_5_14b,
@@ -62,4 +63,5 @@ __all__ = [
     "get_config",
     "reduced",
     "shape_applicable",
+    "paper_networks",
 ]

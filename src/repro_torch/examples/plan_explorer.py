@@ -1,6 +1,6 @@
-"""Plan explorer: the paper's Table-1 methods on an assigned architecture or
-an **arbitrary traced torch function**, with an ASCII memory-vs-overhead
-frontier (port of ``examples/plan_explorer.py``).
+"""Plan explorer: the paper's Table-1 methods on any benchmark network,
+assigned architecture, or **arbitrary traced torch function**, with an
+ASCII memory-vs-overhead frontier (port of ``examples/plan_explorer.py``).
 
 The whole exploration is ONE budget-free DP pass: ``Planner.solve_grid``
 builds a capped sweep (``core.dp.sweep``) whose terminal frontier carries
@@ -9,17 +9,18 @@ and caches it in the content-addressed plan cache under the budget-free
 ``sweep`` entry kind — so re-exploring a graph, or pointing --cache-dir
 (or REPRO_PLAN_CACHE_DIR) at a shared store, re-runs no DP at all.
 
-Run: python -m repro_torch.examples.plan_explorer --arch stablelm-3b
+Run: python -m repro_torch.examples.plan_explorer --network unet --device cpu
+     python -m repro_torch.examples.plan_explorer --arch stablelm-3b
      python -m repro_torch.examples.plan_explorer --traced demo --device cpu
      python -m repro_torch.examples.plan_explorer --traced pkg.mod:factory
 
 ``--traced`` explores any model via the ``plan_function`` front door: pass
 ``module:factory`` where ``factory()`` returns ``(fn, example_args)`` (the
 arguments move to ``--device``) — the function is traced (one graph node
-per aten op) and explored.  ``demo`` uses a built-in MLP factory,
-``bg-demo`` a BlockGraph.  ``--network`` needs the paper's benchmark graphs
-(``benchmarks.networks``), which are not ported: it raises.  ``--arch``
-plans the launcher's unit chain and runs nothing.
+per aten op) and explored like any benchmark network.  ``demo`` uses a
+built-in MLP factory, ``bg-demo`` a BlockGraph.  ``--network`` (default
+``unet``) explores one of the paper's graphs (``configs.paper_networks``)
+and ``--arch`` the launcher's unit chain; neither runs anything.
 """
 
 from __future__ import annotations
@@ -185,7 +186,7 @@ def traced_graph(spec: str, backend: str = "auto", device: str = "cuda"):
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--network", default=None,
-                    help="one of the paper's nets (not ported: raises)")
+                    help="one of the paper's nets (configs.paper_networks)")
     ap.add_argument("--arch", default=None, help="assigned architecture id")
     ap.add_argument("--traced", default=None,
                     help="'demo', 'bg-demo' or 'module:factory' returning "
@@ -231,10 +232,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"arch {args.arch}: unit chain, {pi.n_units} units, "
               f"interior {pi.bytes_interior/1e9:.2f} GB/unit")
     else:
-        from repro_torch.core.lowering.base import not_ported
+        from repro_torch.configs.paper_networks import NETWORKS
 
-        raise not_ported("--network (the paper's benchmark graphs, benchmarks.networks)",
-                         "Benchmarks + examples")
+        name = args.network or "unet"
+        g = NETWORKS[name]()
+        print(f"network {name}:")
     frontier(g, budget=args.budget)
 
 

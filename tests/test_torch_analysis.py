@@ -543,17 +543,21 @@ def test_cli_lint_error_exits_1(monkeypatch, capsys):
 
 
 def test_cli_hlo_writes_drift_records(tmp_path):
+    from repro_torch.configs.paper_networks import NETWORKS
+
     drift = tmp_path / "drift.json"
     assert lint(["--hlo", "--drift-json", str(drift), "--device", "cpu"]) == 0
-    (rec,) = json.loads(drift.read_text())["records"]
-    assert rec["target"] == "quickstart"
-    assert rec["heavy_planned"] - rec["heavy_vanilla"] == rec["heavy_recompute_planned"]
-    assert "temp_bytes" not in rec  # the CPU allocator keeps no statistics
+    records = json.loads(drift.read_text())["records"]
+    # alone, --hlo runs every network and then the quickstart, as the reference's
+    assert [r["target"] for r in records] == [*sorted(NETWORKS), "quickstart"]
+    for rec in records:
+        assert rec["heavy_planned"] - rec["heavy_vanilla"] == rec["heavy_recompute_planned"]
+        assert "temp_bytes" not in rec  # the CPU allocator keeps no statistics
 
 
 def test_cli_network_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="Benchmarks \\+ examples"):
-        lint(["--network", "unet", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown network 'resnet18'; pick from"):
+        lint(["--network", "resnet18", "--device", "cpu"])
 
 
 def test_cli_default_device_raises_without_a_card(monkeypatch):

@@ -7,8 +7,9 @@ the reference's ``examples/*.py`` on the CPU.
 * ``plan_explorer``: ``--traced demo``, ``--traced bg-demo`` and ``--arch
   stablelm-3b`` print the reference's lines, the solve timings aside and
   the traced backend named by its twin (``"fx"`` for ``"jaxpr"``; the
-  BlockGraph's ``"policy"`` is the reference's own name); ``--network``
-  raises, naming ROADMAP.md 'Benchmarks + examples'.
+  BlockGraph's ``"policy"`` is the reference's own name); an unknown
+  ``--network`` raises the reference's ``KeyError`` (the paper's networks
+  are held against the reference in ``tests/test_torch_networks.py``).
 * ``train_lm``: the reference's plan line, and after 2 steps (batch 2 ×
   32) on the reference example's initial weights its final loss within
   the bf16 tolerance of the port's tests (2e-2 × max(1, |loss|)).
@@ -85,8 +86,8 @@ def test_plan_explorer_prints_the_reference_frontier(argv, monkeypatch):
 
 
 def test_plan_explorer_network_raises():
-    with pytest.raises(NotImplementedError, match="Benchmarks \\+ examples"):
-        plan_explorer.main(["--network", "unet", "--device", "cpu"])
+    with pytest.raises(KeyError, match="resnet18"):
+        plan_explorer.main(["--network", "resnet18", "--device", "cpu"])
 
 
 def test_train_lm_plans_and_trains_as_the_reference(tmp_path):

@@ -88,6 +88,49 @@ def test_ssd_chunked_and_grads_match_reference(n_chunks, with_h0):
         close(g, w, what=f"grad {name}")
 
 
+
+def test_ssd_scan_is_as_close_to_f64_as_the_references():
+    """The chunked scan at zamba2's reduced shapes (B 2, S 32, H 2, P 64,
+    N 16, chunk 8; decays exp(A_log) 1 and 16 over softplus steps, as
+    ``mamba2_apply`` gives it) against the plain recurrence in f64, in
+    units of eps32 × the truth's largest value: y and the grads of a
+    random cotangent w.r.t. x, a_log, B and C.  On this seed, port /
+    reference: y 1.21 / 0.91, dx 1.80 / 0.82, da 2.55 / 2.96, dB 1.87 /
+    1.30, dC 1.77 / 0.71.  Either side's few units move from seed to seed,
+    so the port is held within 2 × the reference's distance + 2 units,
+    and within 5 units."""
+    Bz, S, Hz, Pz, Nz = 2, 32, 2, 64, 16
+    r = np.random.default_rng(0)
+    dt = np.log1p(np.exp(r.standard_normal((Bz, S, Hz))))  # softplus
+    x = (r.standard_normal((Bz, S, Hz, Pz)) * dt[..., None]).astype(np.float32)
+    a = (-dt * np.linspace(1.0, 16.0, Hz)).astype(np.float32)
+    Bm, Cm, cot = (r.standard_normal(shape).astype(np.float32) for shape in (
+        (Bz, S, Hz, Nz), (Bz, S, Hz, Nz), (Bz, S, Hz, Pz)))
+
+    # the truth: h_t = exp(a_t) h_{t-1} + x_t ⊗ B_t, y_t = h_t · C_t, in f64
+    leaves = [torch.tensor(v, dtype=torch.float64, requires_grad=True) for v in (x, a, Bm, Cm)]
+    X, A, Bt, Ct = leaves
+    h, ys = torch.zeros(Bz, Hz, Pz, Nz, dtype=torch.float64), []
+    for t in range(S):
+        h = h * torch.exp(A[:, t])[..., None, None] + X[:, t, :, :, None] * Bt[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ct[:, t]))
+    y = torch.stack(ys, 1)
+    truth = [y] + list(torch.autograd.grad(y, leaves, torch.tensor(cot, dtype=torch.float64)))
+
+    targs = [torch.tensor(v, requires_grad=True) for v in (x, a, Bm, Cm)]
+    py, _ = pssm.ssd_chunked(*targs, Q)
+    port = [py] + list(torch.autograd.grad(py, targs, torch.tensor(cot)))
+    ry, vjp = jax.vjp(lambda *t: rssm.ssd_chunked(*t, Q)[0], *map(jnp.asarray, (x, a, Bm, Cm)))
+    ref = [ry] + list(vjp(jnp.asarray(cot)))
+
+    eps = float(np.finfo(np.float32).eps)
+    for name, p, rr, t in zip(("y", "x", "a_log", "B", "C"), port, ref, truth):
+        t = t.detach().numpy()
+        unit = eps * float(np.abs(t).max())
+        dp = float(np.abs(p.detach().double().numpy() - t).max()) / unit
+        dr = float(np.abs(np.asarray(rr, np.float64) - t).max()) / unit
+        assert dp <= 2 * dr + 2 and dp <= 5, (name, dp, dr)
+
 def test_ssd_chunked_equals_the_step_recurrence():
     x, a, Bm, Cm, h0 = ssd_inputs(4 * Q, seed=4, with_h0=True)
     y, hT = pssm.ssd_chunked(*map(torch.tensor, (x, a, Bm, Cm)), Q, h0=torch.tensor(h0))
