@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from . import ref
 
 NEG_INF = ref.NEG_INF
@@ -91,10 +92,19 @@ def build() -> Path:
     per kernel) is kept beside the library as ``nvcc.log``.  A library whose
     tensor-core kernels are not built at the registers their setmaxnreg
     split assumes is not installed: ``check_register_split`` raises.
+    While recording (``repro_torch.obs``) a compile counts ``kernels.built``
+    and its seconds ``kernels.build_s``.
     """
     lib = library_path()
     if lib.exists():
         return lib
+    with obs.timed("kernels.build_s"):
+        _compile(lib)
+    obs.count("kernels.built")
+    return lib
+
+
+def _compile(lib: Path) -> None:
     lib.parent.mkdir(parents=True, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     objs = [lib.parent / f"{src.stem}.{tag}.o" for src in SOURCES]
@@ -123,7 +133,6 @@ def build() -> Path:
         tmp.unlink()
         raise
     os.replace(tmp, lib)
-    return lib
 
 
 def ptxas_registers(log: str) -> Dict[str, int]:

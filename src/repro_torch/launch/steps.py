@@ -48,7 +48,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.planner import get_default_planner
 from repro_torch.launch import specs
 from repro_torch.launch.plan import plan_with_microbatching
 from repro_torch.optim import adamw
@@ -80,7 +82,9 @@ def segment_plan(cfg: ModelConfig, shape: ShapeConfig,
     ``hbm_bytes=None`` budgets against the CUDA card's memory; ``device``
     is profiled when ``REPRO_MEASURED_COSTS`` asks for measured costs.
 
-    Returns (SegmentPlan, DPResult)."""
+    Returns (SegmentPlan, DPResult).  While recording (``repro_torch.obs``)
+    the plan counts its seconds, ``planner.plan_s``, and the plan cache's
+    ``hits``, ``misses`` and ``disk_hits`` over it as ``planner.<tier>``."""
     if cfg.remat_method == "none":
         return None, None
     sizes = dict(ONE_CARD if axis_sizes is None else axis_sizes)
@@ -89,11 +93,17 @@ def segment_plan(cfg: ModelConfig, shape: ShapeConfig,
     dp = _dp_shards(sizes)
     if model_shards_override == 1:  # dp_only: "model" joins the batch axes
         dp *= sizes.get("model", 1)
-    return plan_with_microbatching(
-        cfg, shape, dp, _seq_shards(sizes, shape),
-        model_shards=ms, objective=obj, rules=get_rules(),
-        hbm_bytes=hbm_bytes, device=device,
-    )
+    cache = get_default_planner().cache
+    tiers = {k: getattr(cache, k) for k in ("hits", "misses", "disk_hits")}
+    with obs.timed("planner.plan_s"):
+        out = plan_with_microbatching(
+            cfg, shape, dp, _seq_shards(sizes, shape),
+            model_shards=ms, objective=obj, rules=get_rules(),
+            hbm_bytes=hbm_bytes, device=device,
+        )
+    for k, n in tiers.items():
+        obs.count(f"planner.{k}", getattr(cache, k) - n)
+    return out
 
 
 # --------------------------------------------------------------------- decode

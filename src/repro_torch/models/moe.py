@@ -51,6 +51,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import MoEConfig
 from repro_torch.parallel import sharding as sh
 from .layers import init_normal
@@ -182,20 +183,34 @@ def _moe_mesh(p: Dict, x: torch.Tensor, cfg: MoEConfig) -> Optional[torch.Tensor
 
     b, s, _ = x_loc.shape
     xt = x_loc.reshape(b * s, D)
-    gate_vals, expert_ids, _, _ = _route(router, xt, cfg)
-    disp, eid, pos_c, keep = _pack(xt, expert_ids, E, C_loc)
-    if ep:
-        # (E, C_loc, D) → (E/tp, tp·C_loc, D): each rank's rows travel to
-        # their experts' owner, concatenated along capacity in rank order
-        el = E // tp
-        disp = _all_to_all(disp, mesh).reshape(tp, el, C_loc, D).transpose(0, 1)
-        out = _expert_ffn(experts, disp.reshape(el, tp * C_loc, D))
-        out = out.reshape(el, tp, C_loc, D).transpose(0, 1)
-        out = _all_to_all(out, mesh).reshape(E, C_loc, D)
-    else:
-        out = _expert_ffn(experts, disp)
-    y = _combine(out, eid, pos_c, keep, gate_vals, b * s, K).reshape(b, s, D)
+    with obs.span("moe.route"):
+        gate_vals, expert_ids, _, _ = _route(router, xt, cfg)
+    with obs.span("moe.pack"):
+        disp, eid, pos_c, keep = _pack(xt, expert_ids, E, C_loc)
+    _count(b * s * K, E * C_loc, keep)
+    with obs.span("moe.experts"):
+        if ep:
+            # (E, C_loc, D) → (E/tp, tp·C_loc, D): each rank's rows travel to
+            # their experts' owner, concatenated along capacity in rank order
+            el = E // tp
+            disp = _all_to_all(disp, mesh).reshape(tp, el, C_loc, D).transpose(0, 1)
+            out = _expert_ffn(experts, disp.reshape(el, tp * C_loc, D))
+            out = out.reshape(el, tp, C_loc, D).transpose(0, 1)
+            out = _all_to_all(out, mesh).reshape(E, C_loc, D)
+        else:
+            out = _expert_ffn(experts, disp)
+    with obs.span("moe.combine"):
+        y = _combine(out, eid, pos_c, keep, gate_vals, b * s, K).reshape(b, s, D)
     return DTensor.from_local(y, mesh, xd.placements, run_check=False)
+
+
+def _count(routes: int, slots: int, keep: torch.Tensor) -> None:
+    """The dispatch's counters (while recording): routes (T·K), expert
+    slots (E·capacity) and kept routes, a device sum."""
+    if obs.enabled():
+        obs.count("moe.routes", routes)
+        obs.count("moe.slots", slots)
+        obs.count_device("moe.kept", keep.sum())
 
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False):
@@ -210,14 +225,20 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False
     E, K = cfg.num_experts, cfg.top_k
     T = B * S
     xt = x.reshape(T, D)
-    gate_vals, expert_ids, logits, probs = _route(p["router"], xt, cfg)
-    disp, eid, pos_c, keep = _pack(xt, expert_ids, E, capacity(cfg, T))
-    # experts over the model axis, or (where E does not divide it) the
-    # capacity rows: an unsharded dispatch buffer is large at scale
-    disp = sh.shard(disp, "experts", "expert_cap", None)
-    out_e = sh.shard(_expert_ffn(p["experts"], disp), "experts", "expert_cap", None)
-    y = _combine(out_e, eid, pos_c, keep, gate_vals, T, K).reshape(B, S, D)
-    y = sh.shard(y, "batch", None, "model")
+    cap = capacity(cfg, T)
+    with obs.span("moe.route"):
+        gate_vals, expert_ids, logits, probs = _route(p["router"], xt, cfg)
+    with obs.span("moe.pack"):
+        disp, eid, pos_c, keep = _pack(xt, expert_ids, E, cap)
+        # experts over the model axis, or (where E does not divide it) the
+        # capacity rows: an unsharded dispatch buffer is large at scale
+        disp = sh.shard(disp, "experts", "expert_cap", None)
+    _count(T * K, E * cap, keep)
+    with obs.span("moe.experts"):
+        out_e = sh.shard(_expert_ffn(p["experts"], disp), "experts", "expert_cap", None)
+    with obs.span("moe.combine"):
+        y = _combine(out_e, eid, pos_c, keep, gate_vals, T, K).reshape(B, S, D)
+        y = sh.shard(y, "batch", None, "model")
     if not return_aux:
         return y
     # Switch-style load-balance loss + router z-loss

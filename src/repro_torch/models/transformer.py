@@ -42,12 +42,14 @@ come with their modules.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from . import attention as attn
 from . import moe as moe_mod
@@ -400,6 +402,12 @@ class LM(nn.Module):
         """tokens (B, S) → f32 logits (B, F + S, V).  extra_embeds (B, F, D)
         is the multimodal stub frontend's output, prepended to the token
         embeddings (F = 0 without it)."""
+        return self._logits(self._trunk(tokens, extra_embeds, segment_sizes, segment_remat))
+
+    def _trunk(self, tokens: torch.Tensor, extra_embeds: Optional[torch.Tensor],
+               segment_sizes: Optional[Tuple[int, ...]],
+               segment_remat: Optional[Tuple[bool, ...]]) -> torch.Tensor:
+        """The embedding and the unit chain: the final hidden states."""
         dt = self.cfg.activation_dtype
         h = embed(self.embedding.embed, tokens, dt)
         if extra_embeds is not None:
@@ -407,11 +415,10 @@ class LM(nn.Module):
         h = shard(h, "batch", None, "model")
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         h0 = h  # the hybrid's skip input, read by every unit
-        h = scan_over_segments(
+        return scan_over_segments(
             h, self.layers, lambda unit, x: unit(x, positions, h0, self.shared_attn),
             segment_sizes, segment_remat,
         )
-        return self._logits(h)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rmsnorm(self.final_norm.scale, h)
@@ -424,13 +431,15 @@ class LM(nn.Module):
         segment_sizes: Optional[Tuple[int, ...]] = None,
         segment_remat: Optional[Tuple[bool, ...]] = None,
     ) -> torch.Tensor:
-        logits = self.forward(batch["tokens"], batch.get("extra_embeds"), segment_sizes,
-                              segment_remat)
-        labels = batch["labels"]
-        F = logits.shape[1] - labels.shape[1]
-        if F > 0:  # multimodal prefix positions carry no labels
-            logits = logits[:, F:]
-        return softmax_xent(logits[:, :-1], labels[:, 1:])
+        h = self._trunk(batch["tokens"], batch.get("extra_embeds"), segment_sizes,
+                        segment_remat)
+        with obs.span("lm.head"):
+            logits = self._logits(h)
+            labels = batch["labels"]
+            F = logits.shape[1] - labels.shape[1]
+            if F > 0:  # multimodal prefix positions carry no labels
+                logits = logits[:, F:]
+            return softmax_xent(logits[:, :-1], labels[:, 1:])
 
     # ------------------------------------------------------------------ decode
 
@@ -528,12 +537,16 @@ def scan_over_segments(
         raise ValueError(f"{len(remat)} remat flags for {len(segs)} segments")
 
     offset = 0
-    for size, do_remat in zip(segs, remat):
+    for index, (size, do_remat) in enumerate(zip(segs, remat)):
         seg_units = units[offset:offset + size]
-
-        def seg_fn(x: torch.Tensor, seg_units=seg_units) -> torch.Tensor:
-            for unit in seg_units:
-                x = unit_body(unit, x)
+        # the first call is the segment's forward; a checkpoint calls it
+        # again for each recompute in the backward
+        def seg_fn(x: torch.Tensor, seg_units=seg_units, calls=itertools.count(),
+                   index=index, do_remat=do_remat) -> torch.Tensor:
+            name = "remat.recompute" if next(calls) else "remat.segment"
+            with obs.span(name, index=index, units=len(seg_units), remat=do_remat):
+                for unit in seg_units:
+                    x = unit_body(unit, x)
             return x
 
         h = checkpointed(seg_fn, h) if do_remat else seg_fn(h)

@@ -81,6 +81,7 @@ from torch import nn
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.checkpointing import AsyncCheckpointer, latest_step, restore
 from repro_torch.core.lowering.base import (
     check_executable_mesh,
@@ -355,11 +356,19 @@ class Trainer:
         update is skipped when either is non-finite (``ok``); without it
         nothing is read on the host and the update is applied whatever they
         hold (the dry run steps fake tensors so)."""
-        loss, grads, gnorm = self._grads(batch)
-        loss = _local(loss)
-        ok = not nan_guard or (math.isfinite(float(loss)) and math.isfinite(float(gnorm)))
-        lr = (self._update(grads, gnorm) if ok
-              else adamw.lr_schedule(self.cfg.optimizer, self.opt_state.step + 1))
+        with obs.span("trainer.step", step=self.opt_state.step):
+            with obs.span("trainer.grads"):
+                loss, grads, gnorm = self._grads(batch)
+            loss = _local(loss)
+            ok = True
+            if nan_guard:
+                with obs.span("trainer.nan_guard"):
+                    ok = math.isfinite(float(loss)) and math.isfinite(float(gnorm))
+            if ok:
+                with obs.span("trainer.update"):
+                    lr = self._update(grads, gnorm)
+            else:
+                lr = adamw.lr_schedule(self.cfg.optimizer, self.opt_state.step + 1)
         return {"loss": loss, "grad_norm": gnorm, "lr": lr, "ok": ok}
 
     def _value_and_grad(self, batch: Dict[str, torch.Tensor]):
@@ -392,7 +401,8 @@ class Trainer:
             else:
                 loss = grads = None
                 for mb in _micro_batches(batch, n):
-                    l_, g_ = self._value_and_grad(mb)
+                    with obs.span("trainer.micro"):
+                        l_, g_ = self._value_and_grad(mb)
                     if grads is None:
                         loss, grads = l_, [g.float() for g in g_]
                     else:
