@@ -155,6 +155,11 @@ non-zero and print no result):
              grads bitwise, the extra ``flash_fwd`` launches, a lower
              peak), the serving launcher as phase serve runs it, and
              decode against the forward on 8 tokens (no route dropped);
+             in each, the MoE dispatch kernels' launches
+             (``moe_dispatch.LAUNCHES``) beside the flash kernels': every
+             dispatch on the card runs them, the front door's too (one op
+             node each, again where recomputed), as do phases
+             axis_serve's and production's ranks;
 13. hybrid — zamba2-2.7b (units of 6 Mamba2 blocks and the shared
              attention block on ``concat(h, h0)``; 9 at full depth): the
              launcher, a profiled step, the serving launcher and decode
@@ -177,8 +182,20 @@ non-zero and print no result):
              576-patch prefix (S 1600) under ``launch.steps.segment_plan``'s
              plan for that length, the serving launcher (text-only), and
              ``plan_function`` at 2 units with the prefix;
-17. result — the ``kernels`` JSON line, the card's name and power limit,
-             and the final ``{"ok": true, ...}`` line.
+17. moe_dispatch — granite-moe-3b-a800m's MoE dispatch at its training
+             shape (T 16,384, K 8, E 40, cap 4,096, D 1,536, bf16), with
+             routes crowded onto a few experts (most dropped, as the seed's
+             weights route) and spread (none dropped): the kernels' slot map
+             bitwise the plain ``_pack``'s assignment, its pack bitwise the
+             plain buffer, the combine and both backwards within
+             ``MOE_DISPATCH_RTOL`` of the plain version's values and
+             autograd gradients on the same inputs; the slot map, the
+             pack, the combine and both backwards timed (device time, replayed from a CUDA graph)
+             beside their byte bounds and the plain version's time.  Last,
+             so that its buffers and graph pools cannot crowd a launcher
+             phase budgeted from the card's memory;
+18. result — the ``kernels`` and ``moe_dispatch`` JSON line, the card's
+             name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Needs one CUDA card; exits non-zero without one, and outside a checkout.
 """
@@ -589,6 +606,123 @@ def phase_kernels(results):
     # cuBLAS keeps a workspace for each stream that ran a matmul, the timing
     # streams' too; drop them so that the launcher's peak memory is its own
     torch._C._cuda_clearCublasWorkspaces()
+
+
+MOE_DISPATCH_ARCH = "granite-moe-3b-a800m"
+MOE_DISPATCH_TOKENS = 16384  # the benchmark's training step: 1 x 16,384
+# routing of phase moe_dispatch: the share of one direction added to every
+# token (6: routes crowded onto a few experts, most dropped; 0: spread)
+MOE_DISPATCH_SKEWS = (("crowded", 6.0), ("spread", 0.0))
+# the combine's and the backwards' gap from the plain version's autograd,
+# relative to its norm: bf16 sums rounded once, in another order
+MOE_DISPATCH_RTOL = 2.0 ** -7
+
+
+def moe_dispatch_bounds(T, K, E, cap, D, item, kept, tokens_kept):
+    """Least time (ms) of each dispatch kernel: its bytes at the HBM rate,
+    each input byte read once and each output byte written once; a dropped
+    route's row is never read (``kept`` routes, ``tokens_kept`` tokens with
+    a kept route).  No kernel does arithmetic worth counting."""
+    mesh = importlib.import_module("repro_torch.launch.mesh")
+    N = T * K
+    work = {
+        "moe_slots": 8 * N + 4 * N + 4 * kept + 4 * E,
+        "moe_pack": 4 * kept + 4 * E + (tokens_kept + E * cap) * D * item,
+        "moe_pack_bwd": 4 * N + (kept + T) * D * item,
+        "moe_combine": 8 * N + item * N + (kept + T + N) * D * item,
+        "moe_combine_bwd": 8 * N + item * kept + 4 * E + (T + kept + E * cap) * D * item,
+    }
+    return {name: (nbytes / mesh.HBM_BW * 1e3, nbytes) for name, nbytes in work.items()}
+
+
+def phase_moe_dispatch(results):
+    import torch
+
+    md = importlib.import_module("repro_torch.kernels.moe_dispatch")
+    moe = importlib.import_module("repro_torch.models.moe")
+    configs = importlib.import_module("repro_torch.configs")
+    cfg = configs.get_config(MOE_DISPATCH_ARCH)
+    T, D = MOE_DISPATCH_TOKENS, cfg.d_model
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    cap = moe.capacity(cfg.moe, T)
+    g = torch.Generator().manual_seed(0)
+    router = moe.moe_init(D, cfg.moe, generator=g)["router"].cuda()
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+
+    def plain_ms(fn):  # by graph replay, or where capture is refused by events
+        try:
+            return device_ms(fn)
+        except RuntimeError:
+            torch.cuda.synchronize()
+            return time_ms(fn)
+
+    def grad_ms(out, inputs, cot):  # the plain version's backward alone
+        return time_ms(lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True))
+
+    def gap(a, b):  # relative to the plain version's norm
+        return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+    for tag, skew in MOE_DISPATCH_SKEWS:
+        x = (torch.randn(T, D, generator=g) + skew * torch.randn(D, generator=g)).to(**bf16)
+        gates, ids, _, _ = moe._route(router, x, cfg.moe)
+        disp, eid, pos_c, keep = moe._pack(x, ids, E, cap)
+        sm = md.slot_map(ids, E, cap)
+        check(torch.equal(sm.slot.long(), torch.where(keep, eid * cap + pos_c, -1))
+              and torch.equal(sm.counts.long(), torch.bincount(eid, minlength=E)),
+              f"{tag}: the kernels' slot map is not the plain _pack's assignment")
+        check(torch.equal(md.pack_rows(x, *sm), disp),
+              f"{tag}: the kernels' pack differs from the plain buffer")
+        kept = int(keep.sum())
+        tokens_kept = int(keep.reshape(T, K).any(dim=1).sum())
+        out_e = torch.randn(E, cap, D, generator=g).to(**bf16)
+        dy = torch.randn(T, D, generator=g).to(**bf16)
+        y_k, rows, w = md.combine_rows(out_e, gates, sm.slot, sm.counts)
+        d_out_k, d_gate_k = md.combine_rows_bwd(dy, w, rows, sm.slot, sm.counts, cap, True, True)
+        d_x_k = md.pack_rows_bwd(out_e, sm.slot, T)
+        # the plain version's values and autograd gradients on the same inputs
+        xr = x.clone().requires_grad_()
+        packed = moe._pack(xr, ids, E, cap)[0]
+        er, gr = out_e.clone().requires_grad_(), gates.detach().clone().requires_grad_()
+        y = moe._combine(er, eid, pos_c, keep, gr, T, K)
+        (d_x,) = torch.autograd.grad(packed, [xr], out_e, retain_graph=True)
+        d_out, d_gate = torch.autograd.grad(y, [er, gr], dy, retain_graph=True)
+        gaps = {"y": gap(y_k, y), "d_x": gap(d_x_k, d_x), "d_out": gap(d_out_k, d_out),
+                "d_gate": gap(d_gate_k, d_gate)}
+        bitwise = {"y": torch.equal(y_k, y), "d_x": torch.equal(d_x_k, d_x),
+                   "d_out": torch.equal(d_out_k, d_out), "d_gate": torch.equal(d_gate_k, d_gate)}
+        print(f"[moe_dispatch] {tag}: combine and backwards against the plain version's "
+              f"autograd, relative gap {json.dumps(gaps)}; bitwise {json.dumps(bitwise)}")
+        check(all(v <= MOE_DISPATCH_RTOL for v in gaps.values()),
+              f"{tag}: the combine or a backward differs from the plain version beyond "
+              f"{MOE_DISPATCH_RTOL}")
+        bounds = moe_dispatch_bounds(T, K, E, cap, D, 2, kept, tokens_kept)
+        ms = {
+            "moe_slots": device_ms(lambda: md.slot_map(ids, E, cap)),
+            "moe_pack": device_ms(lambda: md.pack_rows(x, *sm)),
+            "moe_pack_bwd": device_ms(lambda: md.pack_rows_bwd(out_e, sm.slot, T)),
+            "moe_combine": device_ms(lambda: md.combine_rows(out_e, gates, sm.slot, sm.counts)),
+            "moe_combine_bwd": device_ms(lambda: md.combine_rows_bwd(
+                dy, w, rows, sm.slot, sm.counts, cap, True, True)),
+        }
+        plain = {  # the plain _pack ranks the routes and scatters in one
+            "moe_pack": plain_ms(lambda: moe._pack(x, ids, E, cap)),
+            "moe_pack_bwd": grad_ms(packed, [xr], out_e),
+            "moe_combine": plain_ms(lambda: moe._combine(out_e, eid, pos_c, keep, gates, T, K)),
+            "moe_combine_bwd": grad_ms(y, [er, gr], dy),
+        }
+        print(f"[moe_dispatch] {tag}: T {T}, K {K}, E {E}, cap {cap}, D {D}, bf16; {kept} of "
+              f"{T * K} routes kept ({1 - kept / (T * K):.4f} dropped), {tokens_kept} tokens "
+              f"with a kept route; slot map and pack bitwise the plain version's")
+        for name in md.KERNELS:
+            bound, nbytes = bounds[name]
+            print(f"[moe_dispatch] {tag} {name:16s} {ms[name]:9.4f} ms  bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, bytes; {bound / ms[name]:.3f} of it)  plain "
+                  + (f"{plain[name]:9.4f} ms" if name in plain else "(in the plain pack)"))
+        results.setdefault("moe_dispatch", {})[tag] = {
+            "kept": kept, "routes": T * K, "ms": ms, "plain_ms": plain, "gaps": gaps,
+            "bound_ms": {k: b for k, (b, _) in bounds.items()}}
+        del xr, packed, er, gr, y, rows, w, d_out_k, d_gate_k, d_x_k, d_x, d_out, d_gate
+    torch.cuda.empty_cache()
 
 
 def kernel_case(results, ci: int, case: tuple, timed: bool) -> None:
@@ -2164,10 +2298,9 @@ def per_shard_moe(dp: int, tp: int):
             for m in range(tp):
                 xt = x[d * bl:(d + 1) * bl, m * sl:(m + 1) * sl].reshape(bl * sl, D)
                 gates, ids, _, _ = moe._route(p["router"], xt, cfg)
-                disp, eid, pos_c, keep = moe._pack(xt, ids, E, c_loc)
+                disp, routes = moe._dispatch(xt, ids, E, c_loc)
                 out = moe._expert_ffn(p["experts"], disp)
-                cols.append(moe._combine(out, eid, pos_c, keep, gates, bl * sl, K)
-                            .reshape(bl, sl, D))
+                cols.append(routes.combine(out, gates).reshape(bl, sl, D))
             rows.append(torch.cat(cols, 1))
         return torch.cat(rows, 0)
 
@@ -2347,6 +2480,7 @@ def axis_serve_worker(out_dir: Path) -> int:
         layout = specs.param_shardings(cfg, mesh, dict(model.named_parameters()))
         heads.clear()
         fa.reset_launch_counts()
+        moe_counts(reset=True)
         torch.cuda.reset_peak_memory_stats()
         tr = train.Trainer(lambda m, b: m.loss(b, (AXIS_SERVE_UNITS,), (False,)), model,
                            train.TrainConfig(total_steps=AXIS_SERVE_GRANITE_STEPS, log_every=0),
@@ -2357,6 +2491,7 @@ def axis_serve_worker(out_dir: Path) -> int:
                           "comm": {a: {o: r["payload_bytes"] for o, r in ops.items()}
                                    for a, ops in tr.comm_by_axis.items()},
                           "q_heads": sorted(set(heads)), "launches": dict(fa.LAUNCHES),
+                          "moe_launches": moe_counts(),
                           "peak_bytes": torch.cuda.max_memory_allocated()}
         del tr
         free()
@@ -2365,10 +2500,12 @@ def axis_serve_worker(out_dir: Path) -> int:
                              step_shardings=steps.decode_shardings(cfg, shape, mesh))
         for i in range(8):
             eng.submit([1 + i, 2 + i, 3 + i, 4 + i], max_new_tokens=GRANITE_AXIS_DECODE_TOKENS)
+        moe_counts(reset=True)
         with census.CountCollectives() as counted:
             eng.step()
         done = eng.run()
         out["granite"]["decode"] = {
+            "moe_launches": moe_counts(),
             "tokens": sum(len(r.output) for r in done),
             "complete": len(done) == 8 and all(len(r.output) == GRANITE_AXIS_DECODE_TOKENS
                                                for r in done),
@@ -2535,11 +2672,12 @@ def phase_axis_serve(results):
               f"relative gap {worst:.3e}); step seconds {[round(t, 4) for t in g['step_seconds']]}"
               f"; step 1 collectives (payload B) {g['comm']}; all-to-all {a2a} B against the "
               f"shapes' {want_a2a} B; q heads {g['q_heads']}; launches "
-              f"{json.dumps(g['launches'])}; peak {g['peak_bytes']} B")
+              f"{json.dumps(g['launches'])}, MoE dispatch {json.dumps(g['moe_launches'])}; "
+              f"peak {g['peak_bytes']} B")
         dd = g["decode"]
         print(f"[axis_serve] rank {r['rank']} granite sharded decode: {dd['tokens']} tokens, "
               f"median step {dd['median_ms']:.4f} ms, first step's collectives "
-              f"{dd['first_step_collectives']}")
+              f"{dd['first_step_collectives']}; MoE dispatch {json.dumps(dd['moe_launches'])}")
         soft(worst < 1e-4, f"rank {r['rank']}'s granite losses differ from one process's "
               "beyond 1e-4")
         soft(a2a == want_a2a, f"rank {r['rank']}'s all-to-all bytes differ from the shapes'")
@@ -2548,6 +2686,17 @@ def phase_axis_serve(results):
         soft(dd["complete"] and dd["finite"], f"rank {r['rank']}'s granite decode failed")
         soft(all(g["launches"][k] > 0 for k in fa.KERNELS),
               f"rank {r['rank']}'s granite Trainer launched a kernel no time")
+        # each attn_moe block dispatches once a forward (re-runs too) and a backward
+        fwd, bwd = g["launches"]["flash_fwd"], g["launches"]["flash_bwd_dq"]
+        soft(g["moe_launches"] == {"moe_slots": fwd, "moe_pack": fwd, "moe_pack_bwd": bwd,
+                                   "moe_combine": fwd, "moe_combine_bwd": bwd},
+             f"rank {r['rank']}'s granite Trainer launched the dispatch kernels "
+             f"{g['moe_launches']} times")
+        n = dd["moe_launches"]["moe_slots"]
+        soft(n > 0 and dd["moe_launches"] == {"moe_slots": n, "moe_pack": n, "moe_pack_bwd": 0,
+                                              "moe_combine": n, "moe_combine_bwd": 0},
+             f"rank {r['rank']}'s granite decode launched the dispatch kernels "
+             f"{dd['moe_launches']} times")
     for name in fa.KERNELS:
         results[name]["axis_serve_launches"] = {
             "granite": [r["granite"]["launches"][name] for r in ranks]}
@@ -2727,6 +2876,7 @@ def production_worker(out_dir: Path) -> int:
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    moe_counts(reset=True)
     losses, seconds, peak = [], [], None
     for b in batches:
         t0 = time.perf_counter()
@@ -2736,7 +2886,8 @@ def production_worker(out_dir: Path) -> int:
         losses.append(res["loss"])
         peak = peak or torch.cuda.max_memory_allocated()  # step 1's
     out = {"rank": rank, "losses": losses, "step_seconds": seconds,
-           "launches": dict(fa.LAUNCHES), "heads": sorted(set(heads)),
+           "launches": dict(fa.LAUNCHES), "moe_launches": moe_counts(),
+           "heads": sorted(set(heads)),
            "comm": {axis: {op: [rec["calls"], rec["payload_bytes"]] for op, rec in ops.items()}
                     for axis, ops in tr.comm_by_axis.items()},
            "step1_peak_bytes": peak, "resident_bytes": resident,
@@ -2826,7 +2977,8 @@ def phase_production(results):
         worst = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], single["losses"]))
         print(f"[production] rank {r['rank']}: losses {r['losses']} (worst relative gap "
               f"{worst:.3e}); step seconds {[round(t, 4) for t in r['step_seconds']]}; "
-              f"(q, kv) heads {r['heads']}; launches {json.dumps(r['launches'])}; step 1 peak "
+              f"(q, kv) heads {r['heads']}; launches {json.dumps(r['launches'])}, MoE dispatch "
+              f"{json.dumps(r['moe_launches'])}; step 1 peak "
               f"{r['step1_peak_bytes']} B; resident {r['resident_bytes']} B; parameters + "
               f"AdamW {r['state_bytes']} B; step 1 collectives (calls, payload B) {r['comm']}")
         check(worst < 1e-4, f"rank {r['rank']}'s losses differ from one process's beyond 1e-4")
@@ -2834,6 +2986,11 @@ def phase_production(results):
         check(r["launches"] == want_launches, f"rank {r['rank']}'s Trainer launched "
               f"{r['launches']}, not {want_launches} ({PRODUCTION_STEPS} steps of "
               f"{cfg.n_layers} units, {recomputed} recomputed)")
+        fwd, bwd = want_launches["flash_fwd"], want_launches["flash_bwd_dq"]
+        check(r["moe_launches"] == {"moe_slots": fwd, "moe_pack": fwd, "moe_pack_bwd": bwd,
+                                    "moe_combine": fwd, "moe_combine_bwd": bwd},
+              f"rank {r['rank']}'s Trainer launched the MoE dispatch kernels "
+              f"{r['moe_launches']} times (one an attn_moe block run)")
         want = production_collectives(cfg, r["model_sharded_leaves"])
         check(r["comm"] == want, f"rank {r['rank']}'s step 1 collectives {r['comm']} differ "
               f"from the shapes' {want}")
@@ -3606,13 +3763,14 @@ def serve_run(tag: str, args, launches=None) -> dict:
     for cls, decode_step in decode_steps.items():
         cls.decode_step = watched(decode_step)
     fa.reset_launch_counts()
+    moe_counts(reset=True)
     torch.cuda.reset_peak_memory_stats()
     try:
         out = serve.main(args)
     finally:
         for cls, decode_step in decode_steps.items():
             cls.decode_step = decode_step
-    counts = dict(fa.LAUNCHES)
+    counts, dispatch = dict(fa.LAUNCHES), moe_counts()
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     eng, done = out["engine"], out["completed"]
@@ -3627,29 +3785,54 @@ def serve_run(tag: str, args, launches=None) -> dict:
           f"{np.percentile(ms, 90):.4f}, min {ms.min():.4f}, max {ms.max():.4f}")
     print(f"[{tag}] max_memory_allocated {peak} B ({peak / total:.3f} of {total} B); "
           f"KV cache {cache_bytes} B")
-    print(f"[{tag}] launches {json.dumps(counts)}; all logits finite {all_finite}")
+    print(f"[{tag}] launches {json.dumps(counts)}, MoE dispatch {json.dumps(dispatch)}; all "
+          f"logits finite {all_finite}")
     check(len(done) == 16 and all(len(r.output) == 64 for r in done),
           "a request did not complete with its 64 tokens")
     check(all_finite, "a decode step gave a non-finite logit")
     check(peak < 0.9 * total, "serving took more than 0.9 of the card's memory")
     want = {name: (launches or {}).get(name, 0) for name in fa.KERNELS}
     check(counts == want, f"the engine launched the kernels {counts} times, not {want}")
+    cfg = eng.model.cfg
+    check(cfg.moe is None or dispatch["moe_slots"] > 0, "the engine's MoE layers did not "
+          "launch the dispatch kernels")
+    check_moe_launches(tag, cfg, dispatch, dispatch["moe_slots"], 0)
     return out, counts
 
 
 def routes_watched():
-    """Wrap ``models.moe._pack`` so that each dispatch appends its kept-route
-    mask (on the device) to the returned list; returns (list, undo)."""
+    """Wrap ``models.moe._dispatch`` so that each dispatch appends its
+    kept-route mask (on the device) to the returned list; returns (list,
+    undo)."""
     moe = importlib.import_module("repro_torch.models.moe")
-    pack, kept = moe._pack, []
+    dispatch, kept = moe._dispatch, []
 
     def watched(*a, **kw):
-        out = pack(*a, **kw)
-        kept.append(out[3])
-        return out
+        disp, routes = dispatch(*a, **kw)
+        kept.append(routes.kept_mask())
+        return disp, routes
 
-    moe._pack = watched
-    return kept, lambda: setattr(moe, "_pack", pack)
+    moe._dispatch = watched
+    return kept, lambda: setattr(moe, "_dispatch", dispatch)
+
+
+def moe_counts(reset: bool = False) -> dict:
+    """The MoE dispatch kernels' launches since their last reset
+    (``moe_dispatch.LAUNCHES``); with ``reset``, reset them first."""
+    md = importlib.import_module("repro_torch.kernels.moe_dispatch")
+    if reset:
+        md.reset_launch_counts()
+    return dict(md.LAUNCHES)
+
+
+def check_moe_launches(tag: str, cfg, counts: dict, forwards: int, backwards: int) -> None:
+    """The dispatch kernels ran ``forwards`` times and their backwards
+    ``backwards`` times for a model with MoE layers (every dispatch on the
+    card on the kernels), never for one without."""
+    n_fwd, n_bwd = (forwards, backwards) if cfg.moe is not None else (0, 0)
+    want = {"moe_slots": n_fwd, "moe_pack": n_fwd, "moe_pack_bwd": n_bwd,
+            "moe_combine": n_fwd, "moe_combine_bwd": n_bwd}
+    check(counts == want, f"[{tag}] the MoE dispatch kernels launched {counts} times, not {want}")
 
 
 def blockwise_gaps(model, toks) -> list:
@@ -3719,13 +3902,14 @@ def teacher_forcing(tag: str, arch: str, n_tokens: int, blockwise: bool = False,
         model = models.build_model(cfg, device=dev,
                                    generator=torch.Generator(device=dev).manual_seed(0))
         fa.reset_launch_counts()
+        moe_counts(reset=True)
         kept, undo = routes_watched()
         try:
             with torch.no_grad():
                 full = model(toks)
         finally:
             undo()
-        counts = dict(fa.LAUNCHES)
+        counts, dispatch = dict(fa.LAUNCHES), moe_counts()
         dropped = int(sum((~k).sum() for k in kept)) if kept else 0
         caches = model.init_caches(1, n_tokens)
         stepwise = torch.stack([
@@ -3736,11 +3920,13 @@ def teacher_forcing(tag: str, arch: str, n_tokens: int, blockwise: bool = False,
         agree = (stepwise.argmax(-1) == full.argmax(-1)).float().mean().item()
         print(f"[{tag}] teacher forcing {arch} {dtn}, {n_tokens} tokens: max |gap| "
               f"{worst:.4e}, mean |gap| {mean:.4e}, greedy agreement {agree:.4f}; forward "
-              f"launches {json.dumps(counts)}; logits max |x| {full.abs().max().item():.4f}"
+              f"launches {json.dumps(counts)}, MoE dispatch {json.dumps(dispatch)}; logits "
+              f"max |x| {full.abs().max().item():.4f}"
               + (f"; routes dropped by the forward {dropped} of "
                  f"{sum(k.numel() for k in kept)}" if kept else ""))
         check(counts["flash_fwd"] == model.n_units * attention_blocks(cfg),
               "the forward did not launch flash_fwd once an attention block")
+        check_moe_launches(tag, cfg, dispatch, len(kept), 0)
         check(dropped == 0, "the forward dropped routes that decode keeps")
         if blockwise:
             blocks = blockwise_gaps(model, toks)
@@ -3815,13 +4001,14 @@ def family_launcher(results, tag: str, arch: str, units: int = None):
     cfg = cut_depth(configs.get_config(arch), units)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    moe_counts(reset=True)
     kept, undo = routes_watched()
     try:
         out = train.main(["--arch", arch, "--steps", "3", "--batch", "2", "--seq", "1024",
                           "--layers", str(cfg.n_layers)])
     finally:
         undo()
-    counts = dict(fa.LAUNCHES)
+    counts, dispatch = dict(fa.LAUNCHES), moe_counts()
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     sp, res = out["plan"], out["plan_result"]
@@ -3835,8 +4022,8 @@ def family_launcher(results, tag: str, arch: str, units: int = None):
     for i, (loss, dt) in enumerate(zip(out["losses"], out["step_seconds"])):
         print(f"[{tag}] step {i + 1} loss {loss:.6f} time {dt:.4f} s")
     print(f"[{tag}] max_memory_allocated {peak} B ({peak / total:.3f} of {total} B)")
-    print(f"[{tag}] launches {json.dumps(counts)} over {steps} steps of {n} units "
-          f"({recomputed} recomputed per step)")
+    print(f"[{tag}] launches {json.dumps(counts)}, MoE dispatch {json.dumps(dispatch)} over "
+          f"{steps} steps of {n} units ({recomputed} recomputed per step)")
     if cfg.moe is not None:
         routes = sum(k.numel() for k in kept)
         dropped = int(sum((~k).sum() for k in kept))
@@ -3850,6 +4037,8 @@ def family_launcher(results, tag: str, arch: str, units: int = None):
           "flash_fwd launches do not match the units run and recomputed")
     check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == steps * per_unit * n,
           "backward kernel launches do not match the units run")
+    # each attention block of an MoE config is an attn_moe block
+    check_moe_launches(tag, cfg, dispatch, len(kept), steps * per_unit * n)
     check(peak < 0.9 * total, "the launcher took more than 0.9 of the card's memory")
     for name, c in counts.items():
         results[name][f"{tag}_launches"] = c
@@ -3904,6 +4093,10 @@ def front_door(results, tag: str, arch: str, n_units: int, seq: int = 1024,
     flash = {nd.idx for nd in g.nodes if nd.kind == "flash_attention"}
     rec = set().union(*(s.recompute for s in plan.segments))
     rec_flash = flash & rec
+    # the MoE dispatch's op nodes (one each of slots, pack and combine a
+    # layer) and the recomputed ones, by kernel
+    moe_ops = {name: {nd.idx for nd in g.nodes if nd.kind == f"repro_torch::{name}"}
+               for name in ("moe_slots", "moe_pack", "moe_combine")}
     widest = max(range(g.n), key=lambda v: len(g.succ[v]))
     print(f"[{tag}] front door {arch} at {n} unit(s): {g.n} nodes ({len(flash)} "
           f"flash_attention), widest fan-out {len(g.succ[widest])} (node {widest}, "
@@ -3919,12 +4112,13 @@ def front_door(results, tag: str, arch: str, n_units: int, seq: int = 1024,
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
+        moe_counts(reset=True)
         t0 = time.perf_counter()
         loss, grads = fn(params, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() - before
-        return loss.cpu(), grads, peak, dict(fa.LAUNCHES), ms
+        return loss.cpu(), grads, peak, dict(fa.LAUNCHES, **moe_counts()), ms
 
     planned(params, batch)  # warm-up
     runs = {"vanilla": run(lowering.vanilla_traced_value_and_grad(carrier)),
@@ -3947,6 +4141,16 @@ def front_door(results, tag: str, arch: str, n_units: int, seq: int = 1024,
           and c1["flash_bwd_dkv"] == c0["flash_bwd_dkv"] == len(flash),
           "backward kernel launches differ between the planned and vanilla runs")
     check(peak1 < peak0, "the planned run did not lower the measured peak")
+    layers = len(moe_ops["moe_pack"])
+    check(layers == (n * attention_blocks(cfg) if cfg.moe is not None else 0),
+          "the trace does not hold one MoE dispatch op node a layer")
+    for name, (c, again) in {"vanilla": (c0, set()), "planned": (c1, rec)}.items():
+        # each op node once, again where recomputed; each backward once a layer
+        want = {k: len(v) + len(v & again) for k, v in moe_ops.items()}
+        want.update(moe_pack_bwd=layers, moe_combine_bwd=layers)
+        got = {k: c[k] for k in want}
+        check(got == want, f"[{tag}] the {name} run launched the dispatch kernels {got} "
+              f"times, not {want}")
     for name in fa.KERNELS:
         results[name][f"{tag}_planned_launches"] = c1[name]
     del runs, g0, g1, g2, planned, lowered, carrier, model, params
@@ -4266,6 +4470,7 @@ def main() -> int:
         ("xlstm", lambda: phase_xlstm(results)),
         ("whisper", lambda: phase_whisper(results)),
         ("vision", lambda: phase_vision(results)),
+        ("moe_dispatch", lambda: phase_moe_dispatch(results)),
     ]
     t_all = time.perf_counter()
     try:
@@ -4289,7 +4494,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True)
     print(json.dumps({"kernels": [results[k] for k in
-                                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]}))
+                                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")],
+                      "moe_dispatch": results["moe_dispatch"]}))
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip()
           else "nvidia-smi: not available")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

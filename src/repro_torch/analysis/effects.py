@@ -28,7 +28,9 @@ What stands in for what:
   callables with no op schema.  The flash-attention custom op
   ``repro_torch::flash_attention`` (its own autograd formula over a
   hand-written kernel) is the twin of the reference's
-  ``custom_vjp_call``/``pallas_call``.
+  ``custom_vjp_call``/``pallas_call``.  The MoE dispatch's ops
+  (``prims.MOE_OPS``) are pure: deterministic gathers whose backwards read
+  only their own inputs and outputs.
 * ``effectful``: ops fx lists as side-effecting, and ops whose schema
   writes an argument that is (a view of) a graph input.
 * ``donated`` stays in the lattice but is never assigned: torch has no
@@ -50,7 +52,7 @@ from torch import fx
 
 from ..core.fx_graph import FxGraph, is_view, op_name
 from ..core.graph import Graph, Node
-from ..core.prims import ATEN_PRNG, FLASH_OP, SHARD_OP, VOCAB_EMBED_OP, VOCAB_PICK_OP
+from ..core.prims import ATEN_PRNG, FLASH_OP, MOE_OPS, SHARD_OP, VOCAB_EMBED_OP, VOCAB_PICK_OP
 from .report import Report
 
 #: Taint lattice, least to greatest.
@@ -131,6 +133,11 @@ def _classify(node: fx.Node) -> Tuple[str, str]:
         return "pure", ""  # a copy, or a collective over the mesh: replays alike
     if name in (VOCAB_EMBED_OP, VOCAB_PICK_OP):
         return "pure", ""  # a lookup, on the whole or on local shards: replays alike
+    if name in MOE_OPS:
+        # integer ranks and gathers in a fixed order, no atomics: a replay
+        # gives the same bits, and the backward reads only the op's own
+        # inputs and outputs
+        return "pure", ""
     if schema is None:
         return "opaque", (
             f"'{name}' is no aten op; the taint walker cannot see into it")

@@ -128,6 +128,11 @@ FLASH_OP = "repro_torch::flash_attention"
 #: its backward operator (in a trace of a whole step)
 FLASH_BWD_OP = "repro_torch::flash_attention_bwd"
 
+#: The MoE dispatch's custom ops (``kernels.moe_dispatch``), traced on the
+#: card: the slot map, the pack, the combine and their backwards.
+MOE_OPS = frozenset(f"repro_torch::moe_{name}" for name in
+                    ("slots", "pack", "pack_bwd", "combine", "combine_bwd"))
+
 #: The sharding constraint (``parallel.constraint``), traced on a mesh that
 #: splits more than the batch.
 SHARD_OP = "repro_torch::shard"

@@ -8,7 +8,9 @@ C entry points pick the route by dtype and D, as ``tensor_core_route`` does
 here.  Each file's header says what its kernels replace and what bounds
 them on an H100.  They are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` (one nvcc per source, run
-together, then one link) into a plain-C shared library under
+together, then one link; the library also holds the MoE dispatch kernels
+of ``csrc/moe_dispatch.cu``, bound in ``moe_dispatch.py``) into a plain-C
+shared library under
 ``build/repro_torch_kernels/<hash of sources and flags>/`` at the
 repository root, and loaded with ``ctypes``.
 
@@ -44,7 +46,7 @@ SM90_D_STEP = 16  # the tensor-core kernels take bf16 at D a multiple of this
 SM90_KERNELS = ("fwd_kernel_sm90", "dkv_kernel_sm90", "dq_kernel_sm90")
 
 SOURCES = tuple(Path(__file__).parent / "csrc" / name
-                for name in ("flash_attention.cu", "flash_attention_sm90.cu"))
+                for name in ("flash_attention.cu", "flash_attention_sm90.cu", "moe_dispatch.cu"))
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -27,15 +27,30 @@ Two execution paths, as in the reference:
 
 The router runs in f32; ``top_k`` of the softmax, gates renormalized with a
 1e-9 floor; capacity ``max(8, int(capacity_factor·T·K/E))``; each route's
-position in its expert's queue from a cumsum over the token-major (T·K, E)
-one-hot; routes over capacity are dropped, clamped to slot C-1 with a zero
-source.  The dispatch ``.at[eid, pos_c].add`` is an accumulating
-``index_put``: kept routes have distinct (expert, slot) pairs, so the only
-colliding adds are the exact zeros of dropped routes and the result does
-not depend on the order of the adds (nor does the gather's backward, whose
-dropped rows carry zero cotangents).  The expert FFN is three batched
-products (``torch.bmm``), as the reference computes them with
-``jnp.einsum`` outside any kernel.
+position in its expert's queue is its rank among the earlier routes to the
+same expert in token-major order, and routes over capacity are dropped.
+Both paths dispatch through ``_dispatch``, which takes one of two routes by
+the device of its input and returns the routes in a form whose
+``combine`` brings the experts' rows back, so that no caller branches:
+
+* a tensor on the card (plain, fake in a ``make_fx`` trace, a DTensor)
+  runs the hand-written kernels of ``kernels/moe_dispatch.py``, custom ops
+  that a trace records as one node each: the assignment is built once as
+  a slot map in which a dropped route has no slot, and the pack, the
+  combine and both backwards are gathers through it, each output row
+  written once (no scan over a one-hot, no accumulating ``index_put``); a
+  CUDA tensor the kernels refuse (dtype, E) raises;
+* a tensor elsewhere (the CPU, the meta device) runs the plain version,
+  ``_pack`` and ``_combine``, the reference's ops: the position from a
+  cumsum over the token-major (T·K, E) one-hot, dropped routes clamped to
+  slot C-1 with a zero source, and the dispatch ``.at[eid, pos_c].add`` as
+  an accumulating ``index_put``.  Kept routes have distinct (expert,
+  slot) pairs, so the only colliding adds are the exact zeros of dropped
+  routes and the result does not depend on the order of the adds (nor
+  does the gather's backward, whose dropped rows carry zero cotangents).
+
+The expert FFN is three batched products (``torch.bmm``), as the reference
+computes them with ``jnp.einsum`` outside any kernel.
 
 The dense path pins the dispatch buffer and the experts' output to
 ``("experts", "expert_cap", None)`` and its output to ``("batch", None,
@@ -46,13 +61,14 @@ redistributions on DTensors, the identity elsewhere).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels import moe_dispatch as md
 from repro_torch.parallel import sharding as sh
 from .layers import init_normal
 
@@ -128,6 +144,38 @@ def _combine(out_e: torch.Tensor, eid: torch.Tensor, pos_c: torch.Tensor,
     return (gathered * weights[:, None]).reshape(T, K, D).sum(dim=1)
 
 
+class PlainRoutes(NamedTuple):
+    """The plain version's routes: expert, clamped slot and kept mask of
+    each of the T·K routes (``_pack``'s last three values)."""
+
+    eid: torch.Tensor
+    pos_c: torch.Tensor
+    keep: torch.Tensor
+
+    def kept(self) -> torch.Tensor:
+        return self.keep.sum()
+
+    def kept_mask(self) -> torch.Tensor:
+        return self.keep
+
+    def combine(self, out_e: torch.Tensor, gate_vals: torch.Tensor) -> torch.Tensor:
+        T, K = gate_vals.shape
+        return _combine(out_e, *self, gate_vals, T, K)
+
+
+def _dispatch(xt: torch.Tensor, expert_ids: torch.Tensor, E: int, cap: int):
+    """Pack ``xt`` (T, D) into the (E, cap, D) buffer on the route its
+    device takes: (disp, routes), ``routes`` a ``moe_dispatch.SlotMap`` on
+    the card, else ``PlainRoutes``; either one's ``combine(out_e, gates)``
+    gives (T, D), ``kept()`` the kept routes and ``kept_mask()`` which."""
+    if md.kernel_route(xt):
+        obs.count("moe.kernel_route", 1)
+        sm = md.slot_map(expert_ids.contiguous(), E, cap)
+        return md.pack(xt.contiguous(), sm), sm
+    disp, eid, pos_c, keep = _pack(xt, expert_ids, E, cap)
+    return disp, PlainRoutes(eid, pos_c, keep)
+
+
 def _local(w: torch.Tensor, mesh, spec: sh.Spec, grad_placements) -> torch.Tensor:
     """``w`` laid out on ``mesh`` in ``spec``, as this rank's local tensor
     whose gradient DTensor reads in ``grad_placements``."""
@@ -186,8 +234,8 @@ def _moe_mesh(p: Dict, x: torch.Tensor, cfg: MoEConfig) -> Optional[torch.Tensor
     with obs.span("moe.route"):
         gate_vals, expert_ids, _, _ = _route(router, xt, cfg)
     with obs.span("moe.pack"):
-        disp, eid, pos_c, keep = _pack(xt, expert_ids, E, C_loc)
-    _count(b * s * K, E * C_loc, keep)
+        disp, routes = _dispatch(xt, expert_ids, E, C_loc)
+    _count(b * s * K, E * C_loc, routes)
     with obs.span("moe.experts"):
         if ep:
             # (E, C_loc, D) → (E/tp, tp·C_loc, D): each rank's rows travel to
@@ -200,17 +248,18 @@ def _moe_mesh(p: Dict, x: torch.Tensor, cfg: MoEConfig) -> Optional[torch.Tensor
         else:
             out = _expert_ffn(experts, disp)
     with obs.span("moe.combine"):
-        y = _combine(out, eid, pos_c, keep, gate_vals, b * s, K).reshape(b, s, D)
+        y = routes.combine(out, gate_vals).reshape(b, s, D)
     return DTensor.from_local(y, mesh, xd.placements, run_check=False)
 
 
-def _count(routes: int, slots: int, keep: torch.Tensor) -> None:
+def _count(n_routes: int, slots: int, routes) -> None:
     """The dispatch's counters (while recording): routes (T·K), expert
-    slots (E·capacity) and kept routes, a device sum."""
+    slots (E·capacity) and kept routes, a device sum (on the card of
+    ``min(counts[e], cap)``)."""
     if obs.enabled():
-        obs.count("moe.routes", routes)
+        obs.count("moe.routes", n_routes)
         obs.count("moe.slots", slots)
-        obs.count_device("moe.kept", keep.sum())
+        obs.count_device("moe.kept", routes.kept())
 
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False):
@@ -229,15 +278,15 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False
     with obs.span("moe.route"):
         gate_vals, expert_ids, logits, probs = _route(p["router"], xt, cfg)
     with obs.span("moe.pack"):
-        disp, eid, pos_c, keep = _pack(xt, expert_ids, E, cap)
+        disp, routes = _dispatch(xt, expert_ids, E, cap)
         # experts over the model axis, or (where E does not divide it) the
         # capacity rows: an unsharded dispatch buffer is large at scale
         disp = sh.shard(disp, "experts", "expert_cap", None)
-    _count(T * K, E * cap, keep)
+    _count(T * K, E * cap, routes)
     with obs.span("moe.experts"):
         out_e = sh.shard(_expert_ffn(p["experts"], disp), "experts", "expert_cap", None)
     with obs.span("moe.combine"):
-        y = _combine(out_e, eid, pos_c, keep, gate_vals, T, K).reshape(B, S, D)
+        y = routes.combine(out_e, gate_vals).reshape(B, S, D)
         y = sh.shard(y, "batch", None, "model")
     if not return_aux:
         return y
