@@ -2,10 +2,14 @@
 step needs, and the work of each flash-attention kernel launch, with the
 H100's published peaks they are held against.
 
-The kernel counts are copied from the port's ``chip_smoke.py``
-(``attention_bounds``): a product over the (query, key) pairs the causal
-mask keeps; the forward does two, the dq kernel three, the dk/dv kernel
-four; each input byte is counted once and each output byte once.
+A step's model FLOPs are the configuration's model module's
+(:func:`model_flops`: ``model_flops`` of the module under
+``perfbench/reference/`` that the configuration names), so a new
+architecture brings its own count.  The kernel counts are copied from the
+port's ``chip_smoke.py`` (``attention_bounds``): a product over the (query,
+key) pairs the causal mask keeps; the forward does two, the dq kernel
+three, the dk/dv kernel four; each input byte is counted once and each
+output byte once.
 """
 
 from __future__ import annotations
@@ -51,27 +55,10 @@ def least_seconds(ops: float, nbytes: float, peak: float = PEAK_FLOPS_BF16) -> f
     return max(ops / peak, nbytes / HBM_BYTES_PER_S)
 
 
-def matmul_params(config: dict) -> int:
-    """Parameters a token multiplies by: all but the input embedding, which
-    is a gather (a tied table still multiplies as the output head); of the
-    experts only ``top_k`` of ``num_experts``."""
-    p, moe = config["port"], config.get("moe")
-    d, L, V = p["d_model"], p["n_layers"], p["vocab_size"]
-    H, KV, Dh = p["n_heads"], p["n_kv_heads"], p["d_head"]
-    attn = d * H * Dh + 2 * d * KV * Dh + H * Dh * d
-    if moe:
-        ffn = d * moe["num_experts"] + moe["top_k"] * 3 * d * moe["d_ff_expert"]
-    else:
-        ffn = 3 * d * p["d_ff"]
-    return L * (attn + ffn) + V * d
-
-
 def model_flops(config: dict, rows: int, seq_len: int) -> float:
     """FLOPs of one training step on ``rows`` x ``seq_len`` tokens, not
-    counting recomputation: 6 per matmul parameter and token (forward 2,
-    backward 4), and causal attention's two products over the kept pairs
-    (forward 2 x 2 x D a pair and head, backward twice that)."""
-    p = config["port"]
-    tokens = rows * seq_len
-    attn = 12.0 * p["d_head"] * p["n_heads"] * causal_pairs(seq_len, seq_len) * rows
-    return 6.0 * matmul_params(config) * tokens + p["n_layers"] * attn
+    counting recomputation, as the configuration's model module counts them
+    (``model_flops`` of ``perfbench.reference.model(config)``)."""
+    from perfbench.reference import model
+
+    return model(config).model_flops(config, rows, seq_len)

@@ -10,10 +10,18 @@ generator.  The first ``checked_steps`` steps are the set-up's warm-up and
 the steps the reference follows; the window then steps on until
 ``seconds`` have passed, and ends on a step boundary.
 
+A configuration brings its model: the port's ``ModelConfig`` is its
+``arch`` with its ``port`` fields (:func:`port_config`), and its leaves,
+plain reference loss and FLOP count are those of the model module under
+``perfbench/reference/`` that it names (``"model"``, else ``lm``; see that
+package's docstring).  A new architecture is a new module and new files.
+
 The record a per-layer metric's reader gets (:func:`run_cell`) holds the
 window's steps, seconds and update spans, the kernels' launch counts, the
 plan, the memory peak and budget, and, with ``trace``, the profiled
-steps' device kernels and host spans.
+steps' device kernels and host spans (``profile``) and a span pass over
+the steps after them: the program's own span table and counters
+(``spans``, :func:`perfbench.spans.span_pass`).
 """
 
 from __future__ import annotations
@@ -114,13 +122,27 @@ def card_note() -> str:
 
 
 def port_config(config: Dict):
-    """The port's ``ModelConfig`` as the configuration file states it."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import MoEConfig
+    """The port's ``ModelConfig`` as the configuration file states it: the
+    ``arch``'s with the ``port`` fields replaced, each field typed as a
+    dataclass (``moe``, ``ssm``) built from its dict.  The MoE block is
+    ``port``'s ``moe``, else the top-level ``moe`` (none without one)."""
+    import typing
 
-    moe = config.get("moe")
-    return dataclasses.replace(get_config(config["arch"]), **config["port"],
-                               moe=MoEConfig(**moe) if moe else None)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+
+    fields = dict(config["port"])
+    if "moe" not in fields:
+        fields["moe"] = config.get("moe")
+    hints = typing.get_type_hints(ModelConfig)
+    for name, value in fields.items():
+        if isinstance(value, dict):
+            hint = hints[name]
+            kind = next((t for t in typing.get_args(hint) + (hint,)
+                         if dataclasses.is_dataclass(t)), None)
+            if kind is not None:
+                fields[name] = kind(**value)
+    return dataclasses.replace(get_config(config["arch"]), **fields)
 
 
 def build_program(config: Dict, mix: Dict, seed: int, device, hbm_bytes: float
@@ -344,7 +366,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     prepare_environment()
     import torch
 
-    from perfbench import compare, traffic
+    from perfbench import compare, spans, traffic
     from perfbench.reference import follow
 
     start = process_start() if start is None else start
@@ -360,14 +382,21 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     win = window(prog, gen, first, seconds, device, spans=trace)
     plan = {"seconds": prog["plan_s"], "n_micro": prog["step"].n_micro,
             "sizes": prog["step"].segment_sizes, "remat": prog["step"].segment_remat}
-    prof = profiled(prog, gen, first + win["steps"], device) if trace else None
+    prof = span_rec = None
+    traced_s: Dict[str, float] = {}
+    if trace:
+        t0 = time.perf_counter()
+        prof = profiled(prog, gen, first + win["steps"], device)
+        t1 = time.perf_counter()
+        span_rec = spans.span_pass(prog, gen, first + win["steps"] + PROFILED_STEPS, device)
+        traced_s = {"profiled": t1 - t0, "span_pass": time.perf_counter() - t1}
     free_program(prog)
 
     tokens = win["steps"] * mix["rows"] * mix["seq_len"]
     if trace:
         record = {"cell": cell, "config": config, "mix": mix, "window": win,
                   "launches": win["launches"], "plan": plan, "peak_bytes": win["peak_bytes"],
-                  "budget_bytes": cell["hbm_bytes"], "profile": prof}
+                  "budget_bytes": cell["hbm_bytes"], "profile": prof, "spans": span_rec}
         values = {}
         for metric in (per_layer_metrics(name) if metrics is None else metrics):
             got = reader(metric)(record)
@@ -402,7 +431,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     result["_found"] = found
     result["_plan"] = plan
     result["_reserved"] = win["reserved_bytes"]
-    result["_seconds"] = {"setup": setup_s, "window": win["seconds"], "reference": t_ref}
+    result["_seconds"] = {"setup": setup_s, "window": win["seconds"], "reference": t_ref,
+                          **traced_s}
     return result
 
 
@@ -445,8 +475,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 4
     print(f"card: {card_note()}; plan: sizes {list(plan['sizes'] or [])} remat "
           f"{[int(r) for r in plan['remat'] or []]} n_micro {plan['n_micro']}", file=sys.stderr)
+    traced = (f", profiled pass {took['profiled']:.1f}, span pass {took['span_pass']:.1f}"
+              if "span_pass" in took else "")
     print(f"seconds: set-up {took['setup']:.1f}, window {took['window']:.1f}, reference "
-          f"{took['reference']:.1f}, run {time.time() - start:.1f}", file=sys.stderr)
+          f"{took['reference']:.1f}{traced}, run {time.time() - start:.1f}", file=sys.stderr)
     print(f"memory: window peak allocated {result['device']['memory_peak_bytes'] / 2**30:.2f} "
           f"GiB, reserved {reserved / 2**30:.2f} GiB", file=sys.stderr)
     print(f"worst leaves: grad {found['grad']['at']}, change {found['change']['at']} "

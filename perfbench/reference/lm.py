@@ -1,78 +1,31 @@
-"""Plain float32 reference of a training step: the configuration's model
-(pre-norm attention with rotary positions and, per layer, a SwiGLU MLP or
-a top-k mixture of experts with capacity), its next-token loss, the
-gradients and AdamW.
+"""The model module ``lm`` (the default of a configuration without
+``"model"``): a decoder-only language model of pre-norm layers, each
+attention with rotary positions and a SwiGLU MLP or a top-k mixture of
+experts with capacity, and its next-token loss, as the port's ``LM`` runs
+``configs/<config>.json`` (``port``, ``moe``, ``departures``).
 
-It follows what the configuration states, as the program runs it
-(``configs/<config>.json``: ``port``, ``moe``, ``departures``), and is
-computed in blocks: each layer under a checkpoint (its interior is made
-again in the backward pass), attention a block of 1,024 queries at a time
-over the keys the causal mask keeps, the loss 2,048 positions at a time,
-the batch a row at a time.  ``arith`` is the arithmetic of every product
-but the router's: :class:`F32Arith` (float32, TF32 off) or
-:class:`Fp8Arith` (operands rounded to float8 with one scale a tensor: the
-control that a lower precision must fail).
+It gives the three things a model module gives (see
+``perfbench/reference/__init__.py``): :func:`leaves`, :func:`row_loss` and
+:func:`model_flops`.  The loss is computed in blocks: each layer under a
+checkpoint (its interior is made again in the backward pass), attention a
+block of 1,024 queries at a time over the keys the causal mask keeps, the
+loss 2,048 positions at a time.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import List
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from perfbench import weights as W
+from perfbench import flops
+from perfbench.weights import Leaf
 
 Q_BLOCK = 1024
 LOSS_BLOCK = 2048
-
-
-class F32Arith:
-    name = "float32"
-
-    @staticmethod
-    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(a, b)
-
-
-def _round8(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x rounded to ``dtype`` (a float8 type) under one scale that maps its
-    largest magnitude onto the type's largest, returned in float32."""
-    scale = x.detach().abs().amax().clamp(min=1e-30) / torch.finfo(dtype).max
-    return (x / scale).to(dtype).to(torch.float32) * scale
-
-
-class _Fp8Matmul(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, a, b):
-        aq, bq = _round8(a, torch.float8_e4m3fn), _round8(b, torch.float8_e4m3fn)
-        ctx.save_for_backward(aq, bq)
-        ctx.b_shape = b.shape
-        return torch.matmul(aq, bq)
-
-    @staticmethod
-    def backward(ctx, g):
-        aq, bq = ctx.saved_tensors
-        gq = _round8(g, torch.float8_e5m2)
-        ga = torch.matmul(gq, bq.transpose(-1, -2))
-        if len(ctx.b_shape) == 2:
-            gb = aq.reshape(-1, aq.shape[-1]).t() @ gq.reshape(-1, gq.shape[-1])
-        else:
-            gb = torch.matmul(aq.transpose(-1, -2), gq)
-        return ga, gb
-
-
-class Fp8Arith:
-    """float8 products: e4m3 operands forward, e5m2 cotangents backward,
-    float32 sums (the usual float8 training recipe)."""
-
-    name = "float8"
-
-    @staticmethod
-    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return _Fp8Matmul.apply(a, b)
 
 
 # ----------------------------------------------------------------- the model
@@ -203,84 +156,69 @@ def row_loss(P, cfg, tokens, labels, mm) -> torch.Tensor:
     return total
 
 
-# ------------------------------------------------------------------ AdamW
+# ----------------------------------------------------------- leaves, FLOPs
 
 
-def lr_at(opt: dict, step: int) -> float:
-    """Linear warm-up, then a cosine down to ``min_lr_frac`` of the peak."""
-    warm = min(1.0, step / max(1, opt["warmup_steps"]))
-    prog = min(1.0, max(0.0, (step - opt["warmup_steps"])
-                        / max(1, opt["total_steps"] - opt["warmup_steps"])))
-    frac = opt["min_lr_frac"] + (1 - opt["min_lr_frac"]) * 0.5 * (1 + math.cos(math.pi * prog))
-    return opt["lr"] * warm * frac
+def leaves(config: dict) -> List[Leaf]:
+    """Every parameter, named as the port's ``LM`` names it: matrices
+    N(0, 1/fan_in) (fan_in: the dimension a product contracts), the
+    embedding N(0, 1), norm scales ones; a table tied to the output head is
+    the head's matrix too and draws N(0, 1/d_model)."""
+    p, moe = config["port"], config.get("moe")
+    V, d, H, KV, Dh = p["vocab_size"], p["d_model"], p["n_heads"], p["n_kv_heads"], p["d_head"]
+    out: List[Leaf] = [("embedding.embed", (V, d), d ** -0.5 if p["tie_embeddings"] else 1.0)]
+    for u in range(p["n_layers"]):
+        pre = f"layers.{u}.b0_attn_moe." if moe else f"layers.{u}.b0_attn_mlp."
+        out += [
+            (pre + "ln1.scale", (d,), None),
+            (pre + "attn.wq", (d, H * Dh), d ** -0.5),
+            (pre + "attn.wk", (d, KV * Dh), d ** -0.5),
+            (pre + "attn.wv", (d, KV * Dh), d ** -0.5),
+            (pre + "attn.wo", (H * Dh, d), (H * Dh) ** -0.5),
+            (pre + "ln2.scale", (d,), None),
+        ]
+        if moe:
+            E, ff = moe["num_experts"], moe["d_ff_expert"]
+            out += [
+                (pre + "moe.router", (d, E), d ** -0.5),
+                (pre + "moe.experts.w_gate", (E, d, ff), d ** -0.5),
+                (pre + "moe.experts.w_up", (E, d, ff), d ** -0.5),
+                (pre + "moe.experts.w_down", (E, ff, d), ff ** -0.5),
+            ]
+        else:
+            ff = p["d_ff"]
+            out += [
+                (pre + "mlp.w_gate", (d, ff), d ** -0.5),
+                (pre + "mlp.w_up", (d, ff), d ** -0.5),
+                (pre + "mlp.w_down", (ff, d), ff ** -0.5),
+            ]
+    out.append(("final_norm.scale", (d,), None))
+    if not p["tie_embeddings"]:
+        out.append(("head.unembed", (V, d), d ** -0.5))
+    return out
 
 
-def decays(name: str, t: torch.Tensor) -> bool:
-    """The configuration's weight-decay rule: every matrix, and every
-    per-layer leaf (the layers' norm scales too); not the final norm."""
-    return t.dim() >= 2 or name.startswith("layers.")
+def matmul_params(config: dict) -> int:
+    """Parameters a token multiplies by: all but the input embedding, which
+    is a gather (a tied table still multiplies as the output head); of the
+    experts only ``top_k`` of ``num_experts``."""
+    p, moe = config["port"], config.get("moe")
+    d, L, V = p["d_model"], p["n_layers"], p["vocab_size"]
+    H, KV, Dh = p["n_heads"], p["n_kv_heads"], p["d_head"]
+    attn = d * H * Dh + 2 * d * KV * Dh + H * Dh * d
+    if moe:
+        ffn = d * moe["num_experts"] + moe["top_k"] * 3 * d * moe["d_ff_expert"]
+    else:
+        ffn = 3 * d * p["d_ff"]
+    return L * (attn + ffn) + V * d
 
 
-# ---------------------------------------------------------------- the steps
-
-
-def follow(cfg: dict, mix: dict, seed: int, batches: Sequence[Dict], device,
-           arith=F32Arith, step_hook: Callable = None) -> Dict:
-    """Three (``len(batches)``) training steps from the seed's weights:
-    the loss of each step, each leaf's gradient norm at step 1 (before
-    clipping) and each leaf's change over the steps.  ``batches`` hold
-    numpy ``tokens`` and ``labels`` (rows, S)."""
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    opt = mix["optimizer"]
-    names, params = [], []
-    for name, t in W.generate(cfg, seed, device):
-        names.append(name)
-        params.append(t.requires_grad_(True))
-    P = dict(zip(names, params))
-    m = [torch.zeros_like(t) for t in params]
-    v = [torch.zeros_like(t) for t in params]
-    losses, grad_norms = [], None
-    for step, batch in enumerate(batches, start=1):
-        tokens = torch.as_tensor(batch["tokens"], device=device).long()
-        labels = torch.as_tensor(batch["labels"], device=device)
-        rows, S = tokens.shape
-        count = rows * (S - 1)
-        grads, loss = None, 0.0
-        for r in range(rows):
-            part = row_loss(P, cfg, tokens[r:r + 1], labels[r:r + 1], arith.mm) / count
-            got = torch.autograd.grad(part, params)
-            if grads is None:
-                grads = list(got)
-            else:
-                for g, d in zip(grads, got):
-                    g.add_(d)
-            del got
-            loss += float(part.detach())
-        if step_hook is not None:
-            step_hook(step, grads)
-        losses.append(loss)
-        with torch.no_grad():
-            norms = torch.stack([g.norm() for g in grads])
-            if grad_norms is None:
-                grad_norms = dict(zip(names, norms.tolist()))
-            total = float(norms.square().sum().sqrt())
-            clip = opt["clip_norm"]
-            scale = 1.0 if clip is None else min(1.0, clip / max(total, 1e-9))
-            lr = lr_at(opt, step)
-            bc1, bc2 = 1 - opt["b1"] ** step, 1 - opt["b2"] ** step
-            for name, p, g, mt, vt in zip(names, params, grads, m, v):
-                g.mul_(scale)
-                mt.mul_(opt["b1"]).add_(g, alpha=1 - opt["b1"])
-                vt.mul_(opt["b2"]).addcmul_(g, g, value=1 - opt["b2"])
-                delta = (mt / bc1) / ((vt / bc2).sqrt() + opt["eps"])
-                if opt["weight_decay"] and decays(name, p):
-                    delta.add_(p, alpha=opt["weight_decay"])
-                p.sub_(lr * delta)
-        del grads
-    del m, v
-    with torch.no_grad():
-        change = {name: float((P[name] - t0).norm())
-                  for name, t0 in W.generate(cfg, seed, device)}
-    return {"losses": losses, "grad_norms": grad_norms, "change_norms": change}
+def model_flops(config: dict, rows: int, seq_len: int) -> float:
+    """FLOPs of one training step on ``rows`` x ``seq_len`` tokens, not
+    counting recomputation: 6 per matmul parameter and token (forward 2,
+    backward 4), and causal attention's two products over the kept pairs
+    (forward 2 x 2 x D a pair and head, backward twice that)."""
+    p = config["port"]
+    tokens = rows * seq_len
+    attn = 12.0 * p["d_head"] * p["n_heads"] * flops.causal_pairs(seq_len, seq_len) * rows
+    return 6.0 * matmul_params(config) * tokens + p["n_layers"] * attn

@@ -42,7 +42,8 @@ def span_pass(prog: Dict, gen, first: int, device) -> Dict[str, Any]:
     """``harness.PROFILED_STEPS`` steps from batch ``first`` profiled under
     ``obs.recording()``: the span table, the counters, the wall time, the
     device's kernel time (the harness's own kernel filter, in ms) and the
-    kernel names that carry the program's span prefix."""
+    kernel names that carry the program's span prefix.  A traced run of the
+    harness makes this pass too, after its profiled steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

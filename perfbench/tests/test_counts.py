@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from perfbench import flops, harness, traffic
+from perfbench.reference import lm
 
 
 def test_flash_counts_match_the_kernel_table():
@@ -46,7 +47,7 @@ def test_model_flops_by_hand(name, rows, seq):
     d, V = cfg["port"]["d_model"], cfg["port"]["vocab_size"]
     embed = 0 if cfg["port"]["tie_embeddings"] else V * d
     assert matmul == cfg["active_params"] - embed - (2 * 32 + 1) * d
-    assert flops.matmul_params(cfg) == matmul
+    assert lm.matmul_params(cfg) == matmul
     pairs = seq * (seq + 1) // 2
     want = 6 * matmul * rows * seq + 32 * 12 * d_head * heads * pairs * rows
     assert flops.model_flops(cfg, rows, seq) == want
