@@ -23,6 +23,17 @@ class MoEConfig:
     d_ff_expert: int
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
+    # a SwiGLU expert every token passes through, beside the routed ones
+    # (0: none); its width
+    d_ff_shared: int = 0
+    # the experts this device holds of the layer's ``num_experts`` (the
+    # first ones; None: all): the router keeps its width and capacity its
+    # formula over all of them, routes to the others add nothing here
+    experts_held: Optional[int] = None
+
+    @property
+    def held(self) -> int:
+        return self.num_experts if self.experts_held is None else self.experts_held
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +42,9 @@ class SSMConfig:
     d_conv: int = 4
     expand: int = 2
     chunk: int = 256  # chunked-scan block length
+    # Mamba-2's causal conv over x, B and C (with a bias) where zamba2's
+    # runs over x alone without one
+    conv_bc: bool = False
     # xLSTM: index pattern of sLSTM blocks (others are mLSTM)
     slstm_every: int = 0  # 0 → none
 
@@ -65,6 +79,20 @@ class ModelConfig:
     remat_method: str = "approx_dp"  # approx_dp | exact_dp | chen | none | full
     remat_objective: str = "time_centric"
     remat_budget_frac: Optional[float] = None  # fraction of per-device HBM; None → min feasible
+    # a chain of unlike units (granite-4.0-h): the block kind of each layer
+    # of one period, repeated over n_layers; each layer is one unit
+    layer_pattern: Tuple[str, ...] = ()
+    # granite's multipliers (1.0: none): h = m_e·embed, h + m_r·f(h),
+    # logits / logits_scaling; attention scores × attention_multiplier
+    # (None: 1/sqrt(d_head))
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: Optional[float] = None
+
+    def __post_init__(self):
+        # a pattern read from JSON arrives as a list; the config stays hashable
+        object.__setattr__(self, "layer_pattern", tuple(self.layer_pattern))
 
     @property
     def head_dim(self) -> int:
@@ -86,10 +114,36 @@ class ModelConfig:
         ssm = self.ssm or SSMConfig()
         d_inner = ssm.expand * d
         proj_out = 2 * d_inner + 2 * ssm.d_state + max(1, d_inner // 64)
+        if ssm.conv_bc:  # conv weights and bias over x, B and C; A_log, D, dt_bias
+            conv = d_inner + 2 * ssm.d_state
+            return (d * proj_out + (ssm.d_conv + 1) * conv + d_inner * d + d_inner + d
+                    + 3 * max(1, d_inner // 64))
         return d * proj_out + ssm.d_conv * d_inner + d_inner * d + d_inner + d
+
+    def _moe_params(self, active: bool = False) -> int:
+        """One layer's MoE: its pre-norm, the router over all experts, the
+        held experts (``active``: the ``top_k`` a token takes, each held
+        with probability held / num_experts) and the shared expert."""
+        m, d = self.moe, self.d_model
+        routed = 3 * d * m.d_ff_expert
+        experts = (routed * m.top_k * m.held / m.num_experts) if active else routed * m.held
+        return int(d + d * m.num_experts + experts + 3 * d * m.d_ff_shared)
+
+    def _pattern_params(self, active: bool = False) -> int:
+        """A ``layer_pattern`` model: embedding (tied or not), each layer's
+        mixer (a Mamba-2 mixer with its norm, or pre-norm attention) and
+        MoE, the final norm."""
+        d, V = self.d_model, self.vocab_size
+        mixers = {"mamba_moe": self._mamba_params(), "attn_moe": self._attn_params() + d}
+        pat = self.layer_pattern
+        layers = sum(mixers[pat[u % len(pat)]] for u in range(self.n_layers))
+        head = 0 if self.tie_embeddings else V * d
+        return V * d + head + layers + self.n_layers * self._moe_params(active) + d
 
     def num_params(self) -> int:
         """Analytic parameter count, family-aware (feeds MODEL_FLOPS=6·N·D)."""
+        if self.layer_pattern:
+            return self._pattern_params()
         d, L, V = self.d_model, self.n_layers, self.vocab_size
         emb = V * d
         head = 0 if self.tie_embeddings else V * d
@@ -125,6 +179,8 @@ class ModelConfig:
 
     def num_active_params(self) -> int:
         """Active params per token (MoE: only top_k experts count)."""
+        if self.layer_pattern:
+            return self._pattern_params(active=True)
         if self.moe is None:
             return self.num_params()
         d, L = self.d_model, self.n_layers
@@ -182,7 +238,9 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 64) -> ModelConf
     )
     if cfg.moe is not None:
         changes["moe"] = MoEConfig(
-            num_experts=4, top_k=2, d_ff_expert=d_model, capacity_factor=2.0
+            num_experts=4, top_k=2, d_ff_expert=d_model, capacity_factor=2.0,
+            d_ff_shared=d_model if cfg.moe.d_ff_shared else 0,
+            experts_held=2 if cfg.moe.experts_held is not None else None,
         )
     if cfg.ssm is not None:
         changes["ssm"] = dataclasses.replace(
@@ -193,4 +251,6 @@ def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 64) -> ModelConf
         )
     if cfg.hybrid_shared_attn_every:
         changes["hybrid_shared_attn_every"] = 2
+    if cfg.layer_pattern:  # each kind once, in the order they first appear
+        changes["layer_pattern"] = tuple(dict.fromkeys(cfg.layer_pattern))
     return dataclasses.replace(cfg, **changes)

@@ -27,7 +27,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
-import math
 import os
 import subprocess
 from pathlib import Path
@@ -269,12 +268,14 @@ def _launch(name: str, *args) -> None:
 
 
 def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (B,H,Sq,D) in q's dtype and strides, lse (B,H,Sq) f32)."""
+    """Returns (out (B,H,Sq,D) in q's dtype and strides, lse (B,H,Sq) f32);
+    scores scaled by ``scale`` (None: 1/sqrt(D))."""
     B, H, KV, Sq, Sk, D = _check_inputs(q, k, v)
     if q.device.type == "cpu":
-        return ref.attention_with_lse_ref(q, k, v, causal=causal)
+        return ref.attention_with_lse_ref(q, k, v, causal=causal, scale=scale)
     code = _check_cuda(q, k, v)
     if tensor_core_route(q.dtype, D):
         _check_tma(q=q, k=k, v=v)
@@ -284,18 +285,19 @@ def flash_attention_fwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("flash_fwd", code, _ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
                 _strides(q, k, v, out), B, H, KV, Sq, Sk, D, int(causal),
-                1.0 / math.sqrt(D), ctypes.c_void_p(stream))
+                ref.softmax_scale(D, scale), ctypes.c_void_p(stream))
     return out, lse
 
 
 def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, do: torch.Tensor, causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """dq (B,H,Sq,D) in q's dtype and strides; deterministic (no atomics)."""
     B, H, KV, Sq, Sk, D = _check_inputs(q, k, v, do)
     if q.device.type == "cpu":
-        return ref.attention_bwd_dq_ref(q, k, v, lse, delta, do, causal=causal)
+        return ref.attention_bwd_dq_ref(q, k, v, lse, delta, do, causal=causal, scale=scale)
     code = _check_cuda(q, k, v, do)
     if tensor_core_route(q.dtype, D):
         _check_tma(q=q, k=k, v=v, do=do)
@@ -306,7 +308,7 @@ def flash_attention_bwd_dq(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("flash_bwd_dq", code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                 _ptr(delta), _ptr(dq), _strides(q, k, v, do, dq),
-                B, H, KV, Sq, Sk, D, int(causal), 1.0 / math.sqrt(D),
+                B, H, KV, Sq, Sk, D, int(causal), ref.softmax_scale(D, scale),
                 ctypes.c_void_p(stream))
     return dq
 
@@ -314,6 +316,7 @@ def flash_attention_bwd_dq(
 def flash_attention_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, do: torch.Tensor, causal: bool = True,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) on the KV heads, in k's dtype and strides.
 
@@ -323,7 +326,7 @@ def flash_attention_bwd_dkv(
     """
     B, H, KV, Sq, Sk, D = _check_inputs(q, k, v, do)
     if q.device.type == "cpu":
-        return ref.attention_bwd_dkv_ref(q, k, v, lse, delta, do, causal=causal)
+        return ref.attention_bwd_dkv_ref(q, k, v, lse, delta, do, causal=causal, scale=scale)
     code = _check_cuda(q, k, v, do)
     if tensor_core_route(q.dtype, D):
         _check_tma(q=q, k=k, v=v, do=do)
@@ -335,7 +338,7 @@ def flash_attention_bwd_dkv(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("flash_bwd_dkv", code, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
                 _ptr(delta), _ptr(dk), _ptr(dv), _strides(q, k, v, do, dk, dv),
-                B, H, KV, Sq, Sk, D, int(causal), 1.0 / math.sqrt(D),
+                B, H, KV, Sq, Sk, D, int(causal), ref.softmax_scale(D, scale),
                 ctypes.c_void_p(stream))
     return dk, dv
 
@@ -349,6 +352,7 @@ def flash_attention_bwd(
     do: torch.Tensor,
     causal: bool = True,
     dlse: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Recompute backward: (dq, dk, dv), dk/dv on the KV heads.
 
@@ -361,6 +365,6 @@ def flash_attention_bwd(
     delta = ref.row_delta(out, do)
     if dlse is not None:
         delta = (delta - dlse).contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, lse, delta, do, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+    dq = flash_attention_bwd_dq(q, k, v, lse, delta, do, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
     return dq, dk, dv

@@ -237,13 +237,14 @@ def _gathered(rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 
 def _slots_plain(expert_ids, E, cap):
     flat = expert_ids.reshape(-1)
+    held = (flat >= 0) & (flat < E)  # an id outside [0, E) is no expert here
     onehot = (flat[:, None] == torch.arange(E, device=flat.device)).long()
     pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
-    keep = pos < cap
+    keep = held & (pos < cap)
     slot = torch.where(keep, flat * cap + pos, -1).int()
     src = torch.full((E * cap,), -1, dtype=torch.int32, device=flat.device)
     src[slot[keep].long()] = torch.nonzero(keep).reshape(-1).int()
-    return slot, src, torch.bincount(flat, minlength=E).int()
+    return slot, src, torch.bincount(flat[held], minlength=E).int()
 
 
 def _pack_plain(xt, slot, src, counts, cap):
@@ -290,7 +291,9 @@ def _combine_bwd_plain(dy, w, rows, slot, counts, cap, want_out, want_gate):
 @torch.library.custom_op("repro_torch::moe_slots", mutates_args=(), device_types="cuda")
 def moe_slots_op(expert_ids: torch.Tensor, E: int, cap: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(slot (T·K,), src (E·cap,), counts (E,)), int32: :class:`SlotMap`'s."""
+    """(slot (T·K,), src (E·cap,), counts (E,)), int32: :class:`SlotMap`'s;
+    an id outside [0, E) (an expert held elsewhere) is counted nowhere and
+    takes no slot."""
     return slot_rows(expert_ids, E, cap)
 
 

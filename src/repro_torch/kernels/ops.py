@@ -67,23 +67,26 @@ def _bhsd(t: torch.Tensor) -> torch.Tensor:
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out (B, Sq, H, D) contiguous in q's dtype, lse (B, H, Sq) f32)."""
-    out, lse = fa.flash_attention_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal)
+                       causal: bool, scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, Sq, H, D) contiguous in q's dtype, lse (B, H, Sq) f32);
+    scores scaled by ``scale`` (None: 1/sqrt(D))."""
+    out, lse = fa.flash_attention_fwd(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
+                                      scale=scale)
     return _bhsd(out).contiguous(), lse
 
 
 @flash_attention_op.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, scale=None):
     B, Sq, H, _ = q.shape
     return (torch.empty_like(q, memory_format=torch.contiguous_format),
             q.new_empty((B, H, Sq), dtype=torch.float32))
 
 
 def _setup_context(ctx, inputs, output):
-    q, k, v, causal = inputs
+    q, k, v, causal, scale = inputs
     out, lse = output
-    ctx.causal = causal
+    ctx.causal, ctx.scale = causal, scale
     ctx.save_for_backward(q, k, v, out, lse)
     ctx.set_materialize_grads(False)
 
@@ -91,28 +94,33 @@ def _setup_context(ctx, inputs, output):
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
 def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                           dlse: Optional[torch.Tensor], causal: bool
+                           dlse: Optional[torch.Tensor], causal: bool,
+                           scale: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in model layout: the recompute backward
     (``flash_attention.flash_attention_bwd``), each a (B, S, H, D) view of
     the kernels' (B, H, S, D) result."""
     dq, dk, dv = fa.flash_attention_bwd(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(out), lse,
-                                        _bhsd(do), causal=causal, dlse=dlse)
+                                        _bhsd(do), causal=causal, dlse=dlse, scale=scale)
     return _bhsd(dq), _bhsd(dk), _bhsd(dv)
 
 
 @flash_attention_bwd_op.register_fake
-def _(q, k, v, out, lse, do, dlse, causal):
+def _(q, k, v, out, lse, do, dlse, causal, scale=None):
     return tuple(_bhsd(_bhsd(t).new_empty(_bhsd(t).shape)) for t in (q, k, v))
 
 
 def _backward(ctx, do, dlse):
     q, k, v, out, lse = ctx.saved_tensors
     if do is None and dlse is None:
-        return None, None, None, None
+        return None, None, None, None, None
     do = torch.zeros_like(out) if do is None else do.contiguous()
-    dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, do, dlse, ctx.causal)
-    return dq, dk, dv, None
+    if ctx.scale is None:  # the op's default, left out of the call
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, do, dlse, ctx.causal)
+    else:
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, do, dlse, ctx.causal,
+                                            ctx.scale)
+    return dq, dk, dv, None, None
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
@@ -131,15 +139,16 @@ def _register_dtensor_rules() -> None:
     options = ((Replicate(), Replicate()), (Shard(0), Shard(0)), (Shard(2), Shard(1)))
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _fwd_rule(q, k, v, causal):
+    def _fwd_rule(q, k, v, causal, scale=None):
         _same_layout(q, k, v)
-        return [([big, stats], [big, big, big, None]) for big, stats in options]
+        return [([big, stats], [big, big, big, None, None]) for big, stats in options]
 
     @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
-    def _bwd_rule(q, k, v, out, lse, do, dlse, causal):
+    def _bwd_rule(q, k, v, out, lse, do, dlse, causal, scale=None):
         _same_layout(q, k, v)
         return [([big, big, big],
-                 [big, big, big, big, stats, big, None if dlse is None else stats, None])
+                 [big, big, big, big, stats, big, None if dlse is None else stats, None,
+                  None])
                 for big, stats in options]
 
 
@@ -225,10 +234,15 @@ def kv_to_q_heads(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return _KVToQHeads.apply(k, list(q.placements), dims, q.shape[2])
 
 
-def flash_attention_on_mesh(q, k, v, causal: bool):
+def flash_attention_on_mesh(q, k, v, causal: bool, scale: Optional[float] = None):
     """The op ``(out, lse)``, with GQA's whole KV heads first brought to q's
-    split heads on a mesh (:func:`kv_to_q_heads`)."""
-    return flash_attention_op(q, kv_to_q_heads(q, k), kv_to_q_heads(q, v), causal)
+    split heads on a mesh (:func:`kv_to_q_heads`).  A ``scale`` of None
+    (1/sqrt(D)) is left out of the op's call, so a trace records the call
+    as it was before the op took one."""
+    k, v = kv_to_q_heads(q, k), kv_to_q_heads(q, v)
+    if scale is None:
+        return flash_attention_op(q, k, v, causal)
+    return flash_attention_op(q, k, v, causal, scale)
 
 
 def flash_attention(
@@ -236,6 +250,8 @@ def flash_attention(
     k: torch.Tensor,  # (B, Sk, KV, D)
     v: torch.Tensor,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Differentiable flash attention in model layout (B, S, H, D)."""
-    return flash_attention_on_mesh(q, k, v, causal)[0]
+    """Differentiable flash attention in model layout (B, S, H, D); scores
+    scaled by ``scale`` (None: 1/sqrt(D))."""
+    return flash_attention_on_mesh(q, k, v, causal, scale)[0]

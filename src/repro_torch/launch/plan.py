@@ -55,13 +55,13 @@ import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, SSMConfig
 from repro_torch.core import Graph
 from repro_torch.core.dp import DPResult, quantize_times
 from repro_torch.core.graph import Node
 from repro_torch.core.planner import get_default_planner
 from repro_torch.launch.mesh import device_hbm_bytes
-from repro_torch.models.transformer import unit_pattern
+from repro_torch.models.transformer import unit_kinds, unit_pattern
 from repro_torch.parallel.sharding import (
     DEFAULT_RULES,
     Rules,
@@ -78,6 +78,23 @@ class PlanInputs:
     bytes_interior: float  # unit interior activations, per device
     flops_unit: float  # per-shard forward FLOPs of one unit
     budget: float  # per-device activation budget (the paper's B)
+
+    def units(self) -> List[Tuple[float, float]]:
+        """(forward FLOPs, interior bytes) of each unit, in chain order."""
+        return [(self.flops_unit, self.bytes_interior)] * self.n_units
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedPlanInputs(PlanInputs):
+    """:class:`PlanInputs` of a chain of unlike units (``layer_pattern``):
+    each unit's own forward FLOPs and interior bytes, from its kinds;
+    ``flops_unit`` and ``bytes_interior`` are their mean and largest."""
+
+    unit_flops: Tuple[float, ...] = ()
+    unit_interiors: Tuple[float, ...] = ()
+
+    def units(self) -> List[Tuple[float, float]]:
+        return list(zip(self.unit_flops, self.unit_interiors))
 
 
 def _chain_rules(rules: Optional[Rules]) -> Rules:
@@ -150,6 +167,68 @@ def unit_activation_inventory(
     return inv
 
 
+def kind_inventory(
+    cfg: ModelConfig, kind: str, b: int, s: int, tokens_local: Optional[int] = None
+) -> List[Tuple[str, int, Tuple[int, ...], Tuple[Optional[str], ...]]]:
+    """Live activation tensors of one unit of a ``layer_pattern`` chain, a
+    block of ``kind`` (``mamba_moe`` or ``attn_moe``), as
+    :func:`unit_activation_inventory` lists them (an f32 tensor counts
+    twice).  Counted from the tensors the blocks save for their backward
+    (a CPU probe with ``saved_tensors_hooks``):
+
+    * the residual stream: the 6 of a block, and each pre-norm's f32 input;
+    * ``mamba_moe``'s mixer, in (b, s, d_inner) units: the in-projection's
+      output (2), the conv's input and its f32 SiLU input (3), the scan's
+      input, output and chunk states (3), the gate's and the out-norm's
+      f32 inputs (4), the gated, skipped and normed outputs (4);
+    * ``attn_moe``'s attention: the gathered k/v/context, q, k and v;
+    * the MoE of every unit: the held experts' dispatch buffer and
+      outputs (E_held, cap, d), their three hidden products (the gate's in
+      f32), the combine's route rows (T·K, d), the shared expert's three
+      hidden products (its gate in f32)."""
+    d, m = cfg.d_model, cfg.moe
+    ntok = tokens_local if tokens_local is not None else b * s
+    inv: List[Tuple[str, int, Tuple[int, ...], Tuple[Optional[str], ...]]] = [
+        ("residual", 6 + 2 * 2, (b, s, d), ("batch", "seq_chain", None))]
+    if kind == "mamba_moe":
+        d_inner = int((cfg.ssm or SSMConfig()).expand * d)
+        inv.append(("ssm_inner", 16, (b, s, d_inner), ("batch", "seq_sp", "ffn")))
+    elif kind == "attn_moe":
+        inv += [
+            ("attn_gather", 2, (b, s, d), ("batch", "seq_sp", None)),
+            ("q", 1, (b, s, cfg.n_heads, cfg.head_dim), ("batch", "seq_sp", "heads", None)),
+            ("kv", 2, (b, s, cfg.n_kv_heads, cfg.head_dim),
+             ("batch", "seq_sp", "kv_heads", None)),
+        ]
+    else:
+        raise ValueError(f"no inventory of a {kind!r} unit in a layer pattern")
+    cap = max(8, int(m.capacity_factor * ntok * m.top_k / m.num_experts))
+    inv += [
+        ("moe_rows", 2, (m.held, cap, d), ("experts", "expert_cap", None)),
+        ("moe_capacity", 4, (m.held, cap, m.d_ff_expert), ("experts", "expert_cap", None)),
+        ("moe_routes", 1, (ntok * m.top_k, d), (None, None)),
+    ]
+    if m.d_ff_shared:
+        inv.append(("moe_shared", 4, (b, s, m.d_ff_shared), ("batch", "seq_sp", "ffn")))
+    return inv
+
+
+def kind_flops(cfg: ModelConfig, kind: str, tokens: int) -> float:
+    """Forward FLOPs of one ``layer_pattern`` unit of ``kind``: 2 · its
+    matmul parameters a token multiplies by · tokens, a routed expert
+    counted at the share of routes its layer holds."""
+    d, m = cfg.d_model, cfg.moe
+    if kind == "mamba_moe":
+        ssm = cfg.ssm or SSMConfig()
+        d_inner = int(ssm.expand * d)
+        mixer = d * (2 * d_inner + 2 * ssm.d_state + max(1, d_inner // 64)) + d_inner * d
+    else:
+        mixer = cfg._attn_params()
+    routed = 3 * d * m.d_ff_expert * m.top_k * m.held / m.num_experts
+    moe = d * m.num_experts + routed + 3 * d * m.d_ff_shared
+    return 2.0 * (mixer + moe) * tokens
+
+
 def _per_device_bytes(
     shape: Tuple[int, ...],
     logical: Tuple[Optional[str], ...],
@@ -178,13 +257,14 @@ def unit_flops(cfg: ModelConfig, tokens: int) -> float:
 
 
 def chain_graph(pi: PlanInputs) -> Graph:
-    """2-node-per-unit chain: interior → boundary → interior → …"""
+    """2-node-per-unit chain: interior → boundary → interior → …, each
+    interior priced at its own unit's FLOPs and bytes (:meth:`PlanInputs.units`)."""
     nodes = []
     edges = []
-    for u in range(pi.n_units):
+    for u, (flops, interior) in enumerate(pi.units()):
         i_int = 2 * u
         nodes.append(
-            Node(i_int, f"u{u}_interior", max(pi.flops_unit, 1.0), max(pi.bytes_interior, 1.0), "unit")
+            Node(i_int, f"u{u}_interior", max(flops, 1.0), max(interior, 1.0), "unit")
         )
         nodes.append(
             Node(i_int + 1, f"u{u}_out", 1.0, max(pi.bytes_boundary, 1.0), "boundary")
@@ -231,7 +311,8 @@ def plan_inputs(
     launchers' layout logic).  ``rules=None`` uses ``DEFAULT_RULES`` so
     direct calls are deterministic; the launchers pass their active table.
     """
-    _, n_units = unit_pattern(cfg)
+    kinds = unit_kinds(cfg)
+    n_units = len(kinds)
     hbm_bytes = _hbm(hbm_bytes)
     r = _chain_rules(rules)
     axis_sizes = {
@@ -249,29 +330,36 @@ def plan_inputs(
     tl = local_shape((b_g, s), tok_spec, axis_sizes)
     tokens_local = tl[0] * tl[1]
 
-    interior = sum(
-        count * _per_device_bytes(shp, logical, axis_sizes, r, act_bytes)
-        for _, count, shp, logical in unit_activation_inventory(
-            cfg, b_g, s, tokens_local=tokens_local
-        )
-    )
+    def total(inventory) -> float:
+        return float(sum(count * _per_device_bytes(shp, logical, axis_sizes, r, act_bytes)
+                         for _, count, shp, logical in inventory))
+
     h_boundary = _per_device_bytes(
         (b_g, s, d), ("batch", "seq_chain", None), axis_sizes, r, act_bytes
     )
-    # per-shard forward FLOPs (TP splits every unit matmul model_shards ways)
-    flops = unit_flops(cfg, tokens_local) / max(model_shards, 1)
+    if cfg.layer_pattern:
+        per_kind = {k: (kind_flops(cfg, k, tokens_local) / max(model_shards, 1),
+                        total(kind_inventory(cfg, k, b_g, s, tokens_local)))
+                    for k in cfg.layer_pattern}
+        units = [per_kind[k] for (k,) in kinds]
+        interior = max(b for _, b in units)
+        flops = sum(f for f, _ in units) / n_units
+    else:
+        interior = total(unit_activation_inventory(cfg, b_g, s, tokens_local=tokens_local))
+        # per-shard forward FLOPs (TP splits every unit matmul model_shards ways)
+        flops = unit_flops(cfg, tokens_local) / max(model_shards, 1)
     fsdp = dp_shards if needs_fsdp(cfg, model_shards, hbm_bytes) else 1
     static = static_bytes(cfg, model_shards, fsdp)
     if n_micro > 1:
         static += cfg.num_params() * 4 / max(model_shards, 1) / max(fsdp, 1)  # grad accum f32
     budget = max(hbm_bytes - static, 0.05 * hbm_bytes)
-    return PlanInputs(
-        n_units=n_units,
-        bytes_boundary=float(h_boundary),
-        bytes_interior=float(interior),
-        flops_unit=float(flops),
-        budget=float(budget),
-    )
+    common = dict(n_units=n_units, bytes_boundary=float(h_boundary),
+                  bytes_interior=float(interior), flops_unit=float(flops),
+                  budget=float(budget))
+    if cfg.layer_pattern:
+        return MixedPlanInputs(**common, unit_flops=tuple(f for f, _ in units),
+                               unit_interiors=tuple(b for _, b in units))
+    return PlanInputs(**common)
 
 
 def segments_from_result(

@@ -91,7 +91,8 @@ def _reference_tree(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             flat[name] = _sds(t.shape, t.dtype)
     for name, parts in stacked.items():
-        one = parts[0]
+        # a chain of unlike units stacks each kind's leaf over its own units
+        one = next(iter(parts.values()))
         flat[name] = _sds((len(parts), *one.shape), one.dtype)
     tree: Dict[str, Any] = {}
     for name, t in flat.items():

@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-from .transformer import LM, default_segments, unit_pattern
+from .transformer import LM, default_segments, unit_kinds, unit_pattern
 from .whisper import WhisperModel
 
 
@@ -20,4 +20,5 @@ def build_model(cfg: ModelConfig, device="cuda",
     return LM(cfg, device=device, generator=generator)
 
 
-__all__ = ["LM", "WhisperModel", "build_model", "default_segments", "unit_pattern"]
+__all__ = ["LM", "WhisperModel", "build_model", "default_segments", "unit_kinds",
+           "unit_pattern"]

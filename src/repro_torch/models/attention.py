@@ -109,7 +109,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, q_chunk: int = 1024,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      kv_chunk: int = 1024, scale: Optional[float] = None) -> torch.Tensor:
     """Memory-efficient attention: online softmax over KV chunks.
 
     Never materializes more than (B, H, q_chunk, kv_chunk) scores.  S and Sk
@@ -131,7 +131,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
         S, Sk = S + pad_q, Sk + pad_k
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     outs = []
     for qi in range(S // q_chunk):
         q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk].transpose(1, 2)  # (B,H,qc,D)
@@ -174,13 +174,15 @@ def attention(
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
     chunked_threshold: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill), through
     ``kernels.flash_attention``: the CUDA kernels on the card, their plain
     versions on the CPU up to ``chunked_threshold`` tokens (None:
     :data:`CHUNKED_THRESHOLD`'s), and above it
     ``chunked_attention`` under a checkpoint, as the reference runs off
-    its kernel."""
+    its kernel.  Scores are scaled by ``scale`` (None: 1/sqrt(d_head));
+    ``rope_theta`` 0 leaves positions unencoded."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -188,10 +190,11 @@ def attention(
     if chunked_threshold is None:
         chunked_threshold = CHUNKED_THRESHOLD.get()
     if x.device.type == "cpu" and S > chunked_threshold:
-        ctx = checkpointed(lambda q_, k_, v_: chunked_attention(q_, k_, v_, causal=causal),
+        ctx = checkpointed(lambda q_, k_, v_: chunked_attention(q_, k_, v_, causal=causal,
+                                                                scale=scale),
                            q, k, v)
     else:
-        ctx = flash_attention(q, k, v, causal=causal)
+        ctx = flash_attention(q, k, v, causal=causal, scale=scale)
     ctx = shard(ctx, "batch", None, "heads", None)
     out = merge_heads(ctx) @ p["wo"].to(x.dtype)
     return shard(out, "batch", None, "model")

@@ -52,6 +52,17 @@ the device of its input and returns the routes in a form whose
 The expert FFN is three batched products (``torch.bmm``), as the reference
 computes them with ``jnp.einsum`` outside any kernel.
 
+**Held experts** (``MoEConfig.experts_held``, granite-4.0-h's cut to one
+device's share of a layer): the layer holds the first ``held`` of the
+``num_experts`` experts.  The router keeps its width, the top-k its
+choices and the capacity its formula over all experts; a route to an
+expert held elsewhere takes no slot (the slot map's kernel reads an id
+outside ``[0, held)`` as no expert, the plain version masks it), so the
+dispatch buffer is (held, cap, D) and the layer computes its own experts'
+part of the result; what the others would add is left out, with no
+exchange.  **A shared expert** (``MoEConfig.d_ff_shared``): a SwiGLU every
+token passes through, added to the routed result.
+
 The dense path pins the dispatch buffer and the experts' output to
 ``("experts", "expert_cap", None)`` and its output to ``("batch", None,
 "model")`` (``parallel.sharding.shard``: nodes of a model-axis trace,
@@ -70,24 +81,35 @@ from repro_torch import obs
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import moe_dispatch as md
 from repro_torch.parallel import sharding as sh
-from .layers import init_normal
+from .layers import init_normal, swiglu
 
 
 def moe_init(d_model: int, cfg: MoEConfig, *, device=None,
              generator: Optional[torch.Generator] = None) -> Dict:
     """The reference's param tree: ``router`` (D, E) and ``experts``
-    ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D), all f32."""
+    ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D), all f32; with
+    held experts, ``experts`` holds ``held`` of the router's E; with a
+    shared expert, ``shared`` ``w_gate``/``w_up`` (D, F_s), ``w_down``
+    (F_s, D)."""
     E, Fd = cfg.num_experts, cfg.d_ff_expert
     kw = dict(device=device, generator=generator)
     scale_in = d_model**-0.5
-    return {
+    tree = {
         "router": init_normal((d_model, E), scale_in, **kw),
         "experts": {
-            "w_gate": init_normal((E, d_model, Fd), scale_in, **kw),
-            "w_up": init_normal((E, d_model, Fd), scale_in, **kw),
-            "w_down": init_normal((E, Fd, d_model), Fd**-0.5, **kw),
+            "w_gate": init_normal((cfg.held, d_model, Fd), scale_in, **kw),
+            "w_up": init_normal((cfg.held, d_model, Fd), scale_in, **kw),
+            "w_down": init_normal((cfg.held, Fd, d_model), Fd**-0.5, **kw),
         },
     }
+    if cfg.d_ff_shared:
+        Fs = cfg.d_ff_shared
+        tree["shared"] = {
+            "w_gate": init_normal((d_model, Fs), scale_in, **kw),
+            "w_up": init_normal((d_model, Fs), scale_in, **kw),
+            "w_down": init_normal((Fs, d_model), Fs**-0.5, **kw),
+        }
+    return tree
 
 
 def capacity(cfg: MoEConfig, tokens: int) -> int:
@@ -112,9 +134,12 @@ def _route(router_w: torch.Tensor, xt: torch.Tensor, cfg: MoEConfig
     return gate_vals, expert_ids, logits, probs
 
 
-def _pack(xt: torch.Tensor, expert_ids: torch.Tensor, E: int, cap: int
+def _pack(xt: torch.Tensor, expert_ids: torch.Tensor, E: int, cap: int,
+          absent: bool = False
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Scatter tokens into an (E, C, D) buffer; returns (disp, eid, pos_c, keep)."""
+    """Scatter tokens into an (E, C, D) buffer; returns (disp, eid, pos_c, keep).
+    ``absent``: ids from E up name experts held elsewhere, whose routes
+    are not kept (their expert clamped to E-1 with a zero source)."""
     T, D = xt.shape
     K = expert_ids.shape[-1]
     flat_onehot = _one_hot(expert_ids, E).reshape(T * K, E)
@@ -122,6 +147,9 @@ def _pack(xt: torch.Tensor, expert_ids: torch.Tensor, E: int, cap: int
     pos = (pos_in_expert * flat_onehot).sum(dim=-1)  # (T·K,)
     eid = expert_ids.reshape(T * K)
     keep = pos < cap
+    if absent:
+        keep = keep & (eid < E)
+        eid = eid.clamp(max=E - 1)
     src = torch.where(keep[:, None], xt.repeat_interleave(K, dim=0), 0)
     pos_c = pos.clamp(max=cap - 1)
     disp = xt.new_zeros((E, cap, D)).index_put((eid, pos_c), src, accumulate=True)
@@ -163,16 +191,19 @@ class PlainRoutes(NamedTuple):
         return _combine(out_e, *self, gate_vals, T, K)
 
 
-def _dispatch(xt: torch.Tensor, expert_ids: torch.Tensor, E: int, cap: int):
+def _dispatch(xt: torch.Tensor, expert_ids: torch.Tensor, E: int, cap: int,
+              absent: bool = False):
     """Pack ``xt`` (T, D) into the (E, cap, D) buffer on the route its
     device takes: (disp, routes), ``routes`` a ``moe_dispatch.SlotMap`` on
     the card, else ``PlainRoutes``; either one's ``combine(out_e, gates)``
-    gives (T, D), ``kept()`` the kept routes and ``kept_mask()`` which."""
+    gives (T, D), ``kept()`` the kept routes and ``kept_mask()`` which.
+    ``absent``: ids from E up (experts held elsewhere) take no slot, which
+    the slot map's kernel does for any id outside [0, E)."""
     if md.kernel_route(xt):
         obs.count("moe.kernel_route", 1)
         sm = md.slot_map(expert_ids.contiguous(), E, cap)
         return md.pack(xt.contiguous(), sm), sm
-    disp, eid, pos_c, keep = _pack(xt, expert_ids, E, cap)
+    disp, eid, pos_c, keep = _pack(xt, expert_ids, E, cap, absent)
     return disp, PlainRoutes(eid, pos_c, keep)
 
 
@@ -201,6 +232,8 @@ def _moe_mesh(p: Dict, x: torch.Tensor, cfg: MoEConfig) -> Optional[torch.Tensor
     ``_moe_shard_map``); None where the mesh or the shapes do not fit."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+    if cfg.held != cfg.num_experts:
+        return None
     mesh = x.device_mesh
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
@@ -262,6 +295,16 @@ def _count(n_routes: int, slots: int, routes) -> None:
         obs.count_device("moe.kept", routes.kept())
 
 
+def _shared(p: Dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The routed result ``y`` plus the shared expert's of ``x``, if the
+    layer has one."""
+    if "shared" not in p:
+        return y
+    with obs.span("moe.shared"):
+        w = p["shared"]
+        return y + swiglu(w["w_gate"], w["w_up"], w["w_down"], x)
+
+
 def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False):
     """x (B, S, D) → (B, S, D)[, {"lb_loss", "z_loss"}]."""
     from torch.distributed.tensor import DTensor
@@ -269,25 +312,29 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: MoEConfig, return_aux: bool = False
     if not return_aux and isinstance(x, DTensor):
         y = _moe_mesh(p, x, cfg)
         if y is not None:
-            return y
+            return _shared(p, x, y)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    held = cfg.held
     T = B * S
     xt = x.reshape(T, D)
     cap = capacity(cfg, T)
     with obs.span("moe.route"):
         gate_vals, expert_ids, logits, probs = _route(p["router"], xt, cfg)
     with obs.span("moe.pack"):
-        disp, routes = _dispatch(xt, expert_ids, E, cap)
+        disp, routes = _dispatch(xt, expert_ids, held, cap, absent=held < E)
         # experts over the model axis, or (where E does not divide it) the
         # capacity rows: an unsharded dispatch buffer is large at scale
         disp = sh.shard(disp, "experts", "expert_cap", None)
-    _count(T * K, E * cap, routes)
+    _count(T * K, held * cap, routes)
+    if held < E and obs.enabled():
+        obs.count_device("moe.absent", (expert_ids >= held).sum())
     with obs.span("moe.experts"):
         out_e = sh.shard(_expert_ffn(p["experts"], disp), "experts", "expert_cap", None)
     with obs.span("moe.combine"):
         y = routes.combine(out_e, gate_vals).reshape(B, S, D)
         y = sh.shard(y, "batch", None, "model")
+    y = _shared(p, x, y)
     if not return_aux:
         return y
     # Switch-style load-balance loss + router z-loss

@@ -2,13 +2,18 @@
 
 Training runs the *chunked* SSD formulation, quadratic only within a chunk
 and recurrent across chunks; decode runs one step of the recurrence on an
-O(1) state.  As in the reference, the depthwise conv applies to the
-x-branch only.  The reference scans the chunks under ``jax.checkpoint``;
-here each chunk runs under a non-reentrant ``torch.utils.checkpoint``, so
-the backward recomputes a chunk's f32 (B, H, Q, Q) decay and score blocks
-instead of keeping them for every chunk.  While the fx carrier traces, the
-checkpoint is left out (``layers.checkpointed``): the traced graph holds
-each chunk's ops, and the plan decides what they recompute (ROADMAP.md §3).
+O(1) state.  As in the reference, zamba2's depthwise conv applies to the
+x-branch only; with ``SSMConfig.conv_bc`` (granite-4.0-h, as Mamba-2
+itself) it runs over x, B and C with a bias, before the SiLU (training
+only: such a block has no decode step here).  The reference scans the
+chunks one at a time under ``jax.checkpoint``; here the scan takes
+``GROUP`` chunks a step, their intra-chunk products batched and the state
+carried through them in order, each group under a non-reentrant
+``torch.utils.checkpoint``, so the backward recomputes a group's f32
+(B, H, Q, Q) decay and score blocks instead of keeping them for every
+chunk.  While the fx carrier traces, the checkpoint is left out
+(``layers.checkpointed``): the traced graph holds each group's ops, and
+the plan decides what they recompute (ROADMAP.md §3).
 
 The xLSTM blocks: mLSTM runs the same chunked SSD with N = P = d_head;
 sLSTM's elementwise recurrence runs as a doubling scan (``linear_scan``),
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.configs.base import SSMConfig
 from repro_torch.parallel.sharding import shard
 from .attention import merge_heads, split_heads
@@ -53,23 +59,56 @@ def _segsum(a_log: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, -math.inf)
 
 
-def _ssd_chunk(h: torch.Tensor, xq: torch.Tensor, aq: torch.Tensor, Bq: torch.Tensor,
-               Cq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One chunk: state (B,H,P,N) f32, x (B,Q,H,P), a (B,Q,H) f32, B/C
-    (B,Q,H,N) → (new state, y (B,Q,H,P) in x's dtype)."""
-    xf = xq.float()
-    a_cum = torch.cumsum(aq, dim=1)  # (B,Q,H)
+#: chunks one step of the scan computes together, under one checkpoint.
+#: A chunk at a time launches some 320 small ops a chunk (its forward, its
+#: re-run and its backward), which at granite-4.0-h's 16k tokens and 128
+#: heads left an H100 idle three quarters of a step and the step's time
+#: 13-20 % apart between runs; a group of 16 launches some 28 a chunk,
+#: and its f32 (B, H, Q, Q) decay and score blocks, recomputed in the
+#: backward, are 16 chunks' worth (0.5 GiB each at 128 heads of 256).
+GROUP = 16
+
+
+def _segsum_stable(z: torch.Tensor) -> torch.Tensor:
+    """(…, T) → (…, T, T): out[i,j] = Σ_{k=j+1..i} z_k for j ≤ i, -inf above,
+    each a sum of the terms themselves (no difference of two running sums,
+    which loses the small decays between chunks after a large one)."""
+    T = z.shape[-1]
+    below = torch.ones(T, T, dtype=torch.bool, device=z.device).tril(-1)
+    sums = torch.cumsum(z[..., :, None].expand(*z.shape, T).masked_fill(~below, 0), dim=-2)
+    return sums.masked_fill(~torch.ones_like(below).tril(), -math.inf)
+
+
+def _ssd_group(h: torch.Tensor, xg: torch.Tensor, ag: torch.Tensor, Bg: torch.Tensor,
+               Cg: torch.Tensor, Q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G consecutive chunks of Q: state (B,H,P,N) f32, x (B,G·Q,H,P), a
+    (B,G·Q,H) f32, B/C (B,G·Q,H,N) → (the state after the last chunk, y
+    (B,G·Q,H,P) in x's dtype).  Each chunk's outputs and own state in ops
+    batched over the chunks; the state carried into each chunk by one
+    product over the chunks' decays, as the SSD's chunked form passes
+    states.  Counts ``ssm.chunks`` while recording: forwards and re-runs
+    alike."""
+    Bs, S, H, P = xg.shape
+    G, N = S // Q, Bg.shape[-1]
+    obs.count("ssm.chunks", G)
+    x = xg.reshape(Bs, G, Q, H, P).float()
+    Bc, Cc = Bg.reshape(Bs, G, Q, H, N), Cg.reshape(Bs, G, Q, H, N)
+    a_cum = torch.cumsum(ag.reshape(Bs, G, Q, H), dim=2)  # (B,G,Q,H)
     # intra-chunk (flash-style blockwise "attention" with decay)
-    L = torch.exp(_segsum(aq.transpose(1, 2)))  # (B,H,Q,Q)
-    G = torch.einsum("bqhn,bshn->bhqs", Cq, Bq).float()
-    Y_diag = torch.einsum("bhqs,bhqs,bshp->bqhp", G, L, xf)
-    # contribution of the carried state
-    Y_off = torch.einsum("bqhn,bhpn,bqh->bqhp", Cq.float(), h, torch.exp(a_cum))
-    # new carried state
-    decay_to_end = torch.exp(a_cum[:, -1:, :] - a_cum)  # (B,Q,H)
-    new_h = h * torch.exp(a_cum[:, -1, :])[:, :, None, None] + torch.einsum(
-        "bqhn,bqh,bqhp->bhpn", Bq.float(), decay_to_end, xf)
-    return new_h, (Y_diag + Y_off).to(xq.dtype)
+    L = torch.exp(_segsum(ag.reshape(Bs, G, Q, H).transpose(2, 3)))  # (B,G,H,Q,Q)
+    scores = torch.einsum("bgqhn,bgshn->bghqs", Cc, Bc).float()
+    y = torch.einsum("bghqs,bghqs,bgshp->bgqhp", scores, L, x)
+    # each chunk's own state, then the state carried into each chunk: the
+    # incoming state and the earlier chunks' own, each decayed over the
+    # chunks between (one product, no loop over the chunks)
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (B,G,Q,H)
+    own = torch.einsum("bgqhn,bgqh,bgqhp->bghpn", Bc.float(), decay_to_end, x)
+    states = torch.cat([h[:, None], own], dim=1)  # (B,G+1,H,P,N)
+    totals = F.pad(a_cum[:, :, -1, :].transpose(1, 2), (1, 0))  # (B,H,G+1): 0, then each chunk's
+    carried = torch.einsum("bhzc,bchpn->bzhpn", torch.exp(_segsum_stable(totals)), states)
+    y = y + torch.einsum("bgqhn,bghpn,bgqh->bgqhp", Cc.float(), carried[:, :-1],
+                         torch.exp(a_cum))
+    return carried[:, -1], y.reshape(Bs, S, H, P).to(xg.dtype)
 
 
 def ssd_chunked(
@@ -80,7 +119,8 @@ def ssd_chunked(
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,S,H,P), final state (B,H,P,N) f32).
+    """Returns (y (B,S,H,P), final state (B,H,P,N) f32), under the span
+    ``ssm.scan``.
 
     On DTensors split over the batch and the heads the scan runs on each
     rank's local rows and heads (:func:`_ssd_local`): every (row, head)
@@ -94,14 +134,17 @@ def ssd_chunked(
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
-    a = a_log.float()
-    h = h0 if h0 is not None else x.new_zeros((B, H, P, N), dtype=torch.float32)
-    ys = []
-    for c in range(0, S, Q):
-        h, y = checkpointed(_ssd_chunk, h, x[:, c:c + Q], a[:, c:c + Q], Bm[:, c:c + Q],
-                            Cm[:, c:c + Q])
-        ys.append(y)
-    return torch.cat(ys, dim=1), h
+    with obs.span("ssm.scan"):
+        h = h0 if h0 is not None else x.new_zeros((B, H, P, N), dtype=torch.float32)
+        ys = []
+        # one split a tensor, whose backward concatenates the groups'
+        # gradients once; a slice a group would each scatter into a zero
+        # tensor of the whole input's size, all of them summed
+        parts = (t.split(GROUP * Q, dim=1) for t in (x, a_log.float(), Bm, Cm))
+        for xg, ag, Bg, Cg in zip(*parts):
+            h, y = checkpointed(_ssd_group, h, xg, ag, Bg, Cg, Q)
+            ys.append(y)
+        return torch.cat(ys, dim=1), h
 
 
 def _ssd_local(x, a_log, Bm, Cm, chunk: int):
@@ -166,21 +209,26 @@ def mamba2_sizes(d_model: int, cfg: SSMConfig, head_p: int = 64) -> Tuple[int, i
 
 def mamba2_init(d_model: int, cfg: SSMConfig, *, device=None,
                 generator: Optional[torch.Generator] = None) -> Dict:
-    """The reference's param tree, f32."""
+    """The reference's param tree, f32; with ``conv_bc`` the conv's weights
+    (K, d_inner + 2N) and its bias ``conv_b`` over x, B and C."""
     d_inner, H, P = mamba2_sizes(d_model, cfg)
     N = cfg.d_state
     kw = dict(device=device, generator=generator)
     proj_out = 2 * d_inner + 2 * N + H  # z, x, B, C, dt
-    return {
+    conv = d_inner + 2 * N if cfg.conv_bc else d_inner
+    tree = {
         "norm": {"scale": torch.ones(d_model, device=device)},
         "in_proj": {"w": init_normal((d_model, proj_out), d_model**-0.5, **kw)},
-        "conv_w": init_normal((cfg.d_conv, d_inner), 0.5, **kw),
+        "conv_w": init_normal((cfg.d_conv, conv), 0.5, **kw),
         "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),  # A = -exp(A_log)
         "D_skip": torch.ones(H, device=device),
         "dt_bias": torch.zeros(H, device=device),
         "norm_out": {"scale": torch.ones(d_inner, device=device)},
         "out_proj": {"w": init_normal((d_inner, d_model), d_inner**-0.5, **kw)},
     }
+    if cfg.conv_bc:
+        tree["conv_b"] = torch.zeros(conv, device=device)
+    return tree
 
 
 def _split_proj(zxbcdt: torch.Tensor, d_inner: int, N: int, H: int):
@@ -227,16 +275,27 @@ def _ssd_inputs(p: Dict, dt: torch.Tensor, xs: torch.Tensor, H: int, P: int):
     return xh, a_log
 
 
-def mamba2_apply(p: Dict, x: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
-    """Full-sequence forward.  x (B,S,D) → (B,S,D)."""
+def mamba2_apply(p: Dict, x: torch.Tensor, cfg: SSMConfig,
+                 residual: float = 1.0) -> torch.Tensor:
+    """Full-sequence forward.  x (B,S,D) → x + residual·mixer(x), (B,S,D)."""
     B, S, D = x.shape
     dt_ = x.dtype
     d_inner, H, P = mamba2_sizes(D, cfg)
     N = cfg.d_state
     h = gather_sequence(rmsnorm(p["norm"]["scale"], x))
-    z, xs, Bm, Cm, dt = _split_proj(h @ p["in_proj"]["w"].to(dt_), d_inner, N, H)
-    xs = _causal_conv(xs, p["conv_w"].to(dt_))
-    xs = shard(F.silu(xs.float()).to(dt_), "batch", None, "ffn")  # the scan on H/tp heads
+    with obs.span("ssm.proj"):
+        zxbcdt = h @ p["in_proj"]["w"].to(dt_)
+    if cfg.conv_bc:
+        z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, H], dim=-1)
+        with obs.span("ssm.conv"):
+            xbc = _causal_conv(xbc, p["conv_w"].to(dt_)) + p["conv_b"].to(dt_)
+            xbc = F.silu(xbc.float()).to(dt_)
+        xs, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
+        xs = shard(xs, "batch", None, "ffn")
+    else:
+        z, xs, Bm, Cm, dt = _split_proj(zxbcdt, d_inner, N, H)
+        xs = _causal_conv(xs, p["conv_w"].to(dt_))
+        xs = shard(F.silu(xs.float()).to(dt_), "batch", None, "ffn")  # the scan on H/tp heads
     xh, a_log = _ssd_inputs(p, dt, xs, H, P)
     Bh = Bm[:, :, None, :].expand(B, S, H, N)
     Ch = Cm[:, :, None, :].expand(B, S, H, N)
@@ -244,7 +303,9 @@ def mamba2_apply(p: Dict, x: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
     y = y + xs.reshape(B, S, H, P) * p["D_skip"][None, None, :, None].to(dt_)
     y = y.reshape(B, S, d_inner) * F.silu(z.float()).to(dt_)
     y = rmsnorm(p["norm_out"]["scale"], y)
-    return x + shard(y @ p["out_proj"]["w"].to(dt_), "batch", None, "model")
+    with obs.span("ssm.proj"):
+        out = shard(y @ p["out_proj"]["w"].to(dt_), "batch", None, "model")
+    return x + (out if residual == 1.0 else out * residual)
 
 
 def mamba2_init_state(batch: int, d_model: int, cfg: SSMConfig,

@@ -4,8 +4,13 @@ Mamba2-hybrid, xLSTM and vision-stub families.
 
 The layer stack is a chain of repeated *units* (one block for dense and
 MoE; "k Mamba2 blocks + the shared attention block" for the hybrid; "k-1
-mLSTM blocks + 1 sLSTM block" for xLSTM).  The reference stacks the unit
-params along a leading axis and runs them
+mLSTM blocks + 1 sLSTM block" for xLSTM).  A config with a
+``layer_pattern`` (granite-4.0-h) is a chain of *unlike* units, one layer
+each: a ``mamba_moe`` block (pre-norm Mamba-2 mixer, then the pre-norm MoE
+with its shared expert) or an ``attn_moe`` one, in the pattern's order
+(:func:`unit_kinds`); its multipliers scale the embedding, each block's
+residual branches, the attention scores and the logits.  The reference
+stacks the unit params along a leading axis and runs them
 through ``lax.scan``; here each unit is its own ``nn.Module`` in a
 ``ModuleList`` (slicing one stacked leaf would make autograd build a
 full-size gradient per unit), and ``weights.params_from_jax`` unstacks the
@@ -65,8 +70,11 @@ from .layers import (checkpointed, embed, gather_sequence, init_normal, rmsnorm,
 
 
 def unit_pattern(cfg: ModelConfig) -> Tuple[List[str], int]:
-    """Return (block kinds inside one unit, number of units)."""
+    """Return (block kinds inside one unit, number of units).  A chain of
+    unlike units (``layer_pattern``) has no one unit: :func:`unit_kinds`."""
     L = cfg.n_layers
+    if cfg.layer_pattern:
+        raise ValueError(f"{cfg.name}'s units differ by layer; see unit_kinds")
     if cfg.family == "ssm" and cfg.ssm and cfg.ssm.slstm_every:
         k = cfg.ssm.slstm_every
         if L % k:
@@ -82,6 +90,22 @@ def unit_pattern(cfg: ModelConfig) -> Tuple[List[str], int]:
     if cfg.moe is not None:
         return ["attn_moe"], L
     return ["attn_mlp"], L
+
+
+def unit_kinds(cfg: ModelConfig) -> List[List[str]]:
+    """The block kinds of each unit, in chain order: one layer a unit in
+    ``layer_pattern``'s kind (the pattern repeated over ``n_layers``),
+    else :func:`unit_pattern`'s kinds for every unit."""
+    if cfg.layer_pattern:
+        pat = cfg.layer_pattern
+        return [[pat[u % len(pat)]] for u in range(cfg.n_layers)]
+    kinds, n_units = unit_pattern(cfg)
+    return [kinds] * n_units
+
+
+def _scaled(t: torch.Tensor, m: float) -> torch.Tensor:
+    """``t·m``, with no multiply where m is 1."""
+    return t if m == 1.0 else t * m
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +165,7 @@ class Attention(nn.Module):
             dict(self.named_parameters(recurse=False)), x,
             n_heads=c.n_heads, n_kv_heads=c.n_kv_heads, d_head=c.head_dim,
             rope_theta=c.rope_theta, positions=positions, causal=causal,
+            scale=c.attention_multiplier,
         )
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -186,6 +211,14 @@ class AttnMLP(nn.Module):
         return h + self.mlp(self.ln2(h))
 
 
+def _moe_branch(block: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """``h + r·moe(ln2(h))`` of a block holding ``ln2`` and ``moe`` (the
+    MoE's shared expert, if any, inside ``moe``)."""
+    c = block.cfg
+    return h + _scaled(moe_mod.moe_apply(_tree(block.moe), block.ln2(h), c.moe),
+                       c.residual_multiplier)
+
+
 class AttnMoE(nn.Module):
     """The ``attn_moe`` block: pre-norm attention, then the pre-norm MoE."""
 
@@ -198,15 +231,35 @@ class AttnMoE(nn.Module):
         self.moe = _params(**moe_mod.moe_init(cfg.d_model, cfg.moe, device=device,
                                               generator=generator))
 
-    def _moe(self, h: torch.Tensor) -> torch.Tensor:
-        return h + moe_mod.moe_apply(_tree(self.moe), self.ln2(h), self.cfg.moe)
-
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        return self._moe(h + self.attn(self.ln1(h), positions))
+        r = self.cfg.residual_multiplier
+        return _moe_branch(self, h + _scaled(self.attn(self.ln1(h), positions), r))
 
     def decode(self, h: torch.Tensor, cache: Dict[str, torch.Tensor],
                position: torch.Tensor) -> torch.Tensor:
-        return self._moe(h + self.attn.decode(self.ln1(h), cache, position))
+        r = self.cfg.residual_multiplier
+        return _moe_branch(self, h + _scaled(self.attn.decode(self.ln1(h), cache, position), r))
+
+
+class MambaMoE(nn.Module):
+    """The ``mamba_moe`` block (granite-4.0-h): the pre-norm Mamba-2 mixer
+    (its norm in its tree, as zamba2's), then the pre-norm MoE with its
+    shared expert, each added as ``h + r·f(h)``.  Training only."""
+
+    def __init__(self, cfg: ModelConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ssm_cfg = cfg.ssm or SSMConfig()
+        self.mamba = _params(**ssm_mod.mamba2_init(cfg.d_model, self.ssm_cfg, device=device,
+                                                   generator=generator))
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.moe = _params(**moe_mod.moe_init(cfg.d_model, cfg.moe, device=device,
+                                              generator=generator))
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        h = ssm_mod.mamba2_apply(_tree(self.mamba), h, self.ssm_cfg,
+                                 self.cfg.residual_multiplier)
+        return _moe_branch(self, h)
 
 
 class _Recurrent(nn.Module):
@@ -319,8 +372,8 @@ class SharedAttn(nn.Module):
         return h + self.mlp(self.ln2(x))
 
 
-BLOCKS = {"attn_mlp": AttnMLP, "attn_moe": AttnMoE, "mamba": Mamba, "mlstm": MLSTM,
-          "slstm": SLSTM}
+BLOCKS = {"attn_mlp": AttnMLP, "attn_moe": AttnMoE, "mamba_moe": MambaMoE, "mamba": Mamba,
+          "mlstm": MLSTM, "slstm": SLSTM}
 
 
 class Unit(nn.Module):
@@ -370,21 +423,24 @@ class LM(nn.Module):
 
     Parameters are f32 masters on ``device`` (CUDA unless the caller asks
     for the CPU), drawn from ``generator`` (default: seed 0 on ``device``).
+    ``pattern`` is one unit's block kinds, or a chain of unlike units' one
+    period of ``layer_pattern``.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        self.pattern, self.n_units = unit_pattern(cfg)
+        kinds = unit_kinds(cfg)
+        self.pattern = list(cfg.layer_pattern) if cfg.layer_pattern else kinds[0]
+        self.n_units = len(kinds)
         device = torch.device(device)
         if generator is None and device.type != "meta":  # meta: shapes only
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(device=device, generator=generator)
         self.embedding = _params(
             embed=init_normal((cfg.vocab_size, cfg.d_model), 1.0, **kw))
-        self.layers = nn.ModuleList(
-            Unit(self.pattern, cfg, device, generator) for _ in range(self.n_units))
+        self.layers = nn.ModuleList(Unit(k, cfg, device, generator) for k in kinds)
         self.final_norm = RMSNorm(cfg.d_model, device)
         if not cfg.tie_embeddings:
             self.head = _params(unembed=init_normal(
@@ -409,7 +465,7 @@ class LM(nn.Module):
                segment_remat: Optional[Tuple[bool, ...]]) -> torch.Tensor:
         """The embedding and the unit chain: the final hidden states."""
         dt = self.cfg.activation_dtype
-        h = embed(self.embedding.embed, tokens, dt)
+        h = _scaled(embed(self.embedding.embed, tokens, dt), self.cfg.embedding_multiplier)
         if extra_embeds is not None:
             h = torch.cat([extra_embeds.to(dt), h], dim=1)
         h = shard(h, "batch", None, "model")
@@ -421,7 +477,12 @@ class LM(nn.Module):
         )
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """f32 logits; divided by ``logits_scaling`` through the head's input
+        (B, S, d), not its (B, S, V) output: the same numbers where the
+        divisor is a power of two, as granite's 16."""
         h = rmsnorm(self.final_norm.scale, h)
+        if self.cfg.logits_scaling != 1.0:
+            h = h / self.cfg.logits_scaling
         table = self.embedding.embed if self.cfg.tie_embeddings else self.head.unembed
         return unembed(table, h)
 
@@ -451,6 +512,9 @@ class LM(nn.Module):
         (Mamba2 ``{"ssm", "conv"}``, mLSTM ``{"C", "n"}``, sLSTM
         ``{"c", "n"}``); the hybrid's ``{"units": ..., "shared": {"k", "v"}}``."""
         cfg = self.cfg
+        if cfg.layer_pattern:
+            raise NotImplementedError(f"{cfg.name}: no decode caches for a chain of unlike "
+                                      "units (its Mamba-2 blocks have no decode step)")
         n, dt = self.n_units, cfg.activation_dtype
         kw = dict(dtype=dt, device=self.embedding.embed.device)
 

@@ -57,6 +57,7 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.mesh import REFERENCE_HBM_BYTES  # noqa: E402
 from repro_torch.launch.steps import segment_plan as psegment_plan  # noqa: E402
 from repro_torch.models import WhisperModel, build_model, moe  # noqa: E402
+from repro_torch.models import ssm as pssm  # noqa: E402
 from repro_torch.serving import Engine  # noqa: E402
 from repro_torch.train import functional_loss  # noqa: E402
 from repro_torch.weights import params_from_jax, params_to_jax  # noqa: E402
@@ -481,17 +482,18 @@ def test_effect_pass_pins_only_the_flash_nodes(arch):
 
 def test_hybrid_trace_is_non_chain_and_holds_every_chunk():
     """The embedding output feeds the first Mamba2 block and every unit's
-    shared block (the skip edges of ``concat(h, h0)``); the per-chunk
-    checkpoint leaves each chunk's ops in the graph: two ``cumsum`` nodes a
-    chunk (its decay's and the segsum's)."""
+    shared block (the skip edges of ``concat(h, h0)``); the scan's
+    checkpoint, one a group of up to ``ssm.GROUP`` chunks, leaves each
+    group's ops in the graph: three ``cumsum`` nodes a group (its chunks'
+    decays', their segsum's and the segsum of the decays between chunks)."""
     plm, fn, params, tb = _traced_loss(HYBRID)
     g = TracedCarrier.trace(fn, (params, tb)).to_graph()
     (emb,) = [v.idx for v in g.nodes if v.kind == "embedding"]
     cats = [w for w in g.succ[emb] if g.nodes[w].kind == "concatenate"]
     assert len(cats) == plm.n_units and len(g.succ[emb]) > len(cats)
     n_mamba = plm.n_units * len(plm.layers[0].block_names)
-    chunks = SEQ // plm.cfg.ssm.chunk
-    assert sum(v.kind == "cumsum" for v in g.nodes) == 2 * chunks * n_mamba
+    groups = -(-(SEQ // plm.cfg.ssm.chunk) // pssm.GROUP)
+    assert sum(v.kind == "cumsum" for v in g.nodes) == 3 * groups * n_mamba
     assert not any("checkpoint" in v.kind for v in g.nodes)
 
 

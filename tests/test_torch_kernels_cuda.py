@@ -234,6 +234,30 @@ def test_cuda_reduced_family_launchers_train(arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_cuda_op_with_a_scale_matches_plain_grads(dtype, tol):
+    """``ops.flash_attention`` with granite-4.0-h's scale (1/128, not
+    1/sqrt(128)) at its GQA 32/8 and head dim 128, on the card against the
+    same op on the CPU (plain versions): the scale reaches the forward and
+    both backward kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.ops import flash_attention
+
+    q, k, v, do = (x.transpose(0, 2, 1, 3).copy() for x in make(1, 32, 8, 256, 256, 128, 11))
+    dt = getattr(torch, dtype)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        ts = [torch.tensor(x, device=dev).to(dt).requires_grad_(True) for x in (q, k, v)]
+        out = flash_attention(*ts, scale=1.0 / 128)
+        runs.append([out.detach(), *torch.autograd.grad(
+            (out.float() * torch.tensor(do, device=dev)).sum(), ts)])
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    for a, b in zip(runs[1], runs[0]):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=rtol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_cuda_autograd_function_matches_plain_grads():
     """``ops.flash_attention`` on the card (model layout, kernels in both
     passes) against the same Function on the CPU (plain versions), f32."""

@@ -219,9 +219,11 @@ def test_a_trace_on_the_card_records_one_node_an_op(arch, no_launches):
 def plain_and_ops(cfg, p, x, dtype):
     """The dispatch of ``x`` with the plain ``_pack``/``_combine`` and with
     the ops' CPU kernels, on the same expert rows and gates: (assignment,
-    buffer, y and the gradients of x, the rows and the gates) of each."""
+    buffer, y and the gradients of x, the rows and the gates) of each.
+    With held experts (``cfg.experts_held``) the buffer holds those, and a
+    route to another expert takes no slot."""
     xt = x.reshape(-1, D).to(dtype)
-    T, E, K = xt.shape[0], cfg.num_experts, cfg.top_k
+    T, E, K = xt.shape[0], cfg.held, cfg.top_k
     cap = moe.capacity(cfg, T)
     gates, ids, _, _ = moe._route(p["router"], xt, cfg)
     g = torch.Generator().manual_seed(1)
@@ -232,12 +234,13 @@ def plain_and_ops(cfg, p, x, dtype):
         xr, er = xt.clone().requires_grad_(), out_e.clone().requires_grad_()
         gr = gates.detach().clone().requires_grad_()
         if plain:
-            disp, eid, pos_c, keep = moe._pack(xr, ids, E, cap)
+            disp, eid, pos_c, keep = moe._pack(xr, ids, E, cap, absent=E < cfg.num_experts)
             assign = torch.where(keep, eid * cap + pos_c, -1)
             y = moe._combine(er, eid, pos_c, keep, gr, T, K)
         else:
             slot, src, counts = md.moe_slots_op(ids, E, cap)
-            assert torch.equal(counts.long(), torch.bincount(ids.reshape(-1), minlength=E))
+            held = ids.reshape(-1)[ids.reshape(-1) < E]
+            assert torch.equal(counts.long(), torch.bincount(held, minlength=E))
             kept = torch.nonzero(slot >= 0).reshape(-1)
             assert torch.equal(src[slot[kept].long()].long(), kept)
             assign = slot.long()
@@ -259,6 +262,23 @@ def test_the_ops_cpu_kernels_are_the_plain_version(arch, skew):
     plain, ops = plain_and_ops(cfg, p, x, torch.float32)
     names = ["assignment", "buffer", "y", "d_x", "d_rows", "d_gates"]
     assert [n for n, a, b in zip(names, plain, ops) if not torch.equal(a, b)] == []
+
+
+@pytest.mark.parametrize("skew", [0.0, 2.0])
+@pytest.mark.parametrize("held", [1, 3, 8])
+def test_held_experts_ops_cpu_kernels_are_the_plain_version(held, skew):
+    """A layer holding ``held`` of granite-4.0-h's 72 experts: the slot map's
+    plain statement gives a route to an expert from ``held`` up no slot and
+    counts it nowhere, as ``_pack`` with ``absent`` masks it; assignment,
+    buffer, output and gradients bitwise in f32."""
+    cfg, p, x = setup("granite-4.0-h-small", skew=skew)
+    cfg = dataclasses.replace(cfg, experts_held=held)
+    plain, ops = plain_and_ops(cfg, p, x, torch.float32)
+    names = ["assignment", "buffer", "y", "d_x", "d_rows", "d_gates"]
+    assert [n for n, a, b in zip(names, plain, ops) if not torch.equal(a, b)] == []
+    assert plain[1].shape[0] == held
+    assign = plain[0]
+    assert (assign >= 0).any() and (assign < held * moe.capacity(cfg, 64)).all()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

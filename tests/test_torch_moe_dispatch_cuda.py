@@ -9,7 +9,7 @@ PyTorch is installed:
 Without a card every case skips.  Each case runs ``moe_apply`` forward and
 backward at a full-size shape twice on the kernels and once on the plain
 version (the route forced off): the slot map is bitwise the plain
-``_pack``'s assignment, the output and the gradients of x, the router and
+``_pack``'s assignment (a layer holding some of the router's experts too), the output and the gradients of x, the router and
 the experts agree within the working dtype's rounding, the two kernel runs
 are bitwise equal, and each kernel launched once.  A DTensor and a
 collective's pending result take the kernels; so does a trace on the card
@@ -113,6 +113,44 @@ def test_kernels_match_the_plain_version(case, monkeypatch):
     for name, a, b in zip(["x", "router", "w_gate", "w_up", "w_down"], got[1:], want[1:]):
         gap = float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
         assert gap <= rtol, f"{case}: grad {name} {gap:.3e} from the plain version's"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [0.0, 6.0])
+def test_held_experts_take_the_slot_map(skew, monkeypatch):
+    """granite-4.0-h's layer at its training shape (T 16,384, K 10 of 72,
+    cap 2,844), holding experts 0-8: the slot map gives every route to an
+    expert from 9 up no slot and counts it nowhere, bitwise the plain
+    ``_pack``'s assignment with those routes masked; the layer's output and
+    gradients on the (9, cap, D) buffer agree with the plain version's."""
+    needs_card()
+    cfg, p, x, cot = setup("granite-4.0-h-small", 16384, "bfloat16", skew)
+    cfg = dataclasses.replace(cfg, experts_held=9)
+    p["experts"] = {k: w[:9].contiguous() for k, w in p["experts"].items()}
+    T, held = 16384, 9
+    cap = moe.capacity(cfg, T)
+    xt = x.reshape(T, -1)
+    _, ids, _, _ = moe._route(p["router"], xt, cfg)
+    assert int((ids >= held).sum()) > 0
+    _, eid, pos_c, keep = moe._pack(xt, ids, held, cap, absent=True)
+    sm = md.slot_map(ids, held, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(sm.slot.long(), torch.where(keep, eid * cap + pos_c, -1))
+    flat = ids.reshape(-1)
+    assert torch.equal(sm.counts.long(), torch.bincount(flat[flat < held], minlength=held))
+    kept = torch.nonzero(keep).reshape(-1)
+    assert torch.equal(sm.src[sm.slot[kept].long()].long(), kept)
+
+    md.reset_launch_counts()
+    got = run(p, x, cot, cfg)
+    assert md.LAUNCHES == {name: 1 for name in md.KERNELS}, md.LAUNCHES
+    monkeypatch.setattr(md, "kernel_route", lambda t: False)
+    want = run(p, x, cot, cfg)
+    rtol = RTOL["bfloat16"]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=rtol, atol=rtol * 0.1)
+    for name, a, b in zip(["x", "router", "w_gate", "w_up", "w_down"], got[1:], want[1:]):
+        gap = float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+        assert gap <= rtol, f"held: grad {name} {gap:.3e} from the plain version's"
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ once a step, each segment's forward once and the recomputed one's re-run
 once; a tiny MoE opens its dispatch spans in every forward and re-run, and
 ``span_table`` hands the gather's and the ``index_put``'s backward to the
 spans of their forward ops.  Recording changes no loss or gradient bit and
-no ``make_fx`` trace.  ``span_table``'s invariants hold on hand-built
+no ``make_fx`` trace.  granite-4.0-h's Mamba-2 mixers and shared expert
+open their own spans and count chunks and absent routes.  ``span_table``'s invariants hold on hand-built
 events.
 """
 
@@ -139,6 +140,54 @@ def test_moe_spans_backward_nodes_and_counters(monkeypatch):
     assert counts["moe.routes"] == T * K * calls
 
 
+HYBRID = "granite-4.0-h-small"
+
+
+def test_hybrid_spans_and_counters_appear_while_recording_alone():
+    """granite-4.0-h at 4 units (mamba_moe, attn_moe twice; 2 of 4 experts
+    held, a shared expert), the first segment of two units recomputed:
+    the Mamba-2 mixers' projection, conv and scan spans and the shared
+    expert's open in every forward and re-run; ``ssm.chunks`` counts every
+    chunk scanned, forwards and re-runs (the scan's own checkpoint re-runs
+    each chunk in the backward), ``moe.absent`` the routes to experts held
+    elsewhere.  Off, none of it."""
+    cfg = _cfg(HYBRID)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, experts_held=2))
+    torch.manual_seed(0)
+    tr = Trainer(_loss, build_model(cfg, device="cpu"), TrainConfig(), device="cpu")
+    assert cfg.layer_pattern == ("mamba_moe", "attn_moe") and cfg.moe.held < cfg.moe.num_experts
+    with obs.recording():
+        pass  # clears the counters
+    assert _names(_profiled(tr, cfg, record=False)) == [] and obs.counters() == {}
+    prof = _profiled(tr, cfg)
+    table, counts = obs.span_table(prof), obs.counters()
+    mamba = STEPS * (2 + 1)  # units 0 and 2, and unit 0 again in the re-run
+    for name, calls in (("ssm.scan", mamba), ("ssm.conv", mamba), ("ssm.proj", 2 * mamba),
+                        ("moe.shared", STEPS * (4 + 2))):
+        assert table[name]["calls"] == calls, name
+    chunks = SEQ // cfg.ssm.chunk
+    # unit 0: forward, re-run, and each chunk's own re-run; unit 2: forward, re-run
+    assert counts["ssm.chunks"] == STEPS * chunks * (3 + 2)
+    routes = STEPS * (4 + 2) * ROWS * SEQ * cfg.moe.top_k
+    assert counts["moe.routes"] == routes and 0 < counts["moe.absent"] < routes
+    # a chunk's re-run in the backward belongs to the scan's backward ...
+    assert table["ssm.scan"]["bwd_nodes"]
+    # ... and a segment's re-run of the scan nests in remat.recompute, whose
+    # device time holds its kernels
+    events = list(prof.events())
+    reruns = {id(e) for e in events if e.name.startswith("repro.remat.recompute")}
+
+    def under_rerun(e):
+        while e is not None:
+            if id(e) in reruns:
+                return True
+            e = e.cpu_parent
+        return False
+
+    scans = [e for e in events if e.name == "repro.ssm.scan"]
+    assert sum(map(under_rerun, scans)) == STEPS
+
+
 def test_a_recompute_owns_its_ops_not_the_backward_node_around_it():
     cfg, tr = _trainer("granite-moe-3b-a800m")
     prof = _profiled(tr, cfg)
@@ -164,7 +213,7 @@ def test_a_recompute_owns_its_ops_not_the_backward_node_around_it():
             stack.extend(e.cpu_children)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "granite-moe-3b-a800m", HYBRID])
 def test_recording_changes_no_loss_or_gradient_bit(arch):
     cfg = _cfg(arch)
     torch.manual_seed(0)
@@ -185,7 +234,7 @@ def test_recording_changes_no_loss_or_gradient_bit(arch):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "granite-moe-3b-a800m", HYBRID])
 def test_a_make_fx_trace_does_not_see_recording(arch):
     cfg = _cfg(arch)
     torch.manual_seed(0)
